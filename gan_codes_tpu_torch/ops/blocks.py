@@ -1,0 +1,74 @@
+"""Generator residual block (the generator half of
+`gan_codes_tpu/ops/blocks.py`).
+
+`ResidualBlockG` holds the reference ResidualBlockG's parameters under its
+state_dict names (`src/generator/residual_block.py:9-27`): `fusion_block_
+{1..4}`, `conv_1`, `conv_2`, `scale_conv` (a 1x1 conv, only when the
+channel count changes) and the scalar `gamma` (shape [1], zero init).
+`res_block_g` is its forward: two DFBlocks (double affine modulation +
+LeakyReLU, then a 3x3 conv), the shortcut, and `shortcut + gamma * h`.
+
+Each DFBlock dispatches as the JAX package's kernel path does
+(`blocks.py:74-86`): to kernel K2 (`fused_modconv3x3`) where its
+`_supported` holds, else to kernel K1 plus a torch conv.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from . import fusion
+from . import nn as ops_nn
+from .fusion import AffineBlock
+from .kernels.fused_modconv import _supported, fused_modconv3x3
+
+
+class ResidualBlockG(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int, sentence_dim: int = 256,
+                 affine_hidden: int = 256):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.zeros(1))
+        self.fusion_block_1 = AffineBlock(sentence_dim, affine_hidden, in_ch)
+        self.fusion_block_2 = AffineBlock(sentence_dim, affine_hidden, in_ch)
+        self.conv_1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+        self.fusion_block_3 = AffineBlock(sentence_dim, affine_hidden, out_ch)
+        self.fusion_block_4 = AffineBlock(sentence_dim, affine_hidden, out_ch)
+        self.conv_2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        self.scale_conv = (nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch
+                           else None)
+
+    def forward(self, x: torch.Tensor,
+                sentence_embed: torch.Tensor) -> torch.Tensor:
+        return res_block_g(self, x, sentence_embed)
+
+
+def _df_block(affine_a: AffineBlock, affine_b: AffineBlock, conv: nn.Conv2d,
+              x: torch.Tensor, sentence_embed: torch.Tensor) -> torch.Tensor:
+    """One DFBlock: lrelu(affine_b(lrelu(affine_a(x)))) then the 3x3 conv."""
+    dt = x.dtype
+    w = conv.weight.to(dt).permute(2, 3, 1, 0)  # OIHW -> HWIO
+    if _supported(w):
+        g1, b1 = fusion.affine_params(affine_a, sentence_embed)
+        g2, b2 = fusion.affine_params(affine_b, sentence_embed)
+        # The HWIO copy is made every forward on purpose: it leaves the
+        # weight in L2 just before K2 streams it. A copy kept across
+        # forwards is read cold from HBM, and K2 on the small, latency-bound
+        # layers was measured slower for it at batch 16 (PERF.md).
+        return fused_modconv3x3(x, g1.to(dt), b1.to(dt), g2.to(dt),
+                                b2.to(dt), w.contiguous(), conv.bias.to(dt))
+    h = fusion.double_affine_leaky(affine_a, affine_b, x, sentence_embed)
+    return ops_nn.conv2d(h, conv.weight, conv.bias, padding=1)
+
+
+def res_block_g(block: ResidualBlockG, x: torch.Tensor,
+                sentence_embed: torch.Tensor) -> torch.Tensor:
+    """x [B, H, W, Cin] NHWC -> [B, H, W, Cout]."""
+    h = _df_block(block.fusion_block_1, block.fusion_block_2, block.conv_1,
+                  x, sentence_embed)
+    h = _df_block(block.fusion_block_3, block.fusion_block_4, block.conv_2,
+                  h, sentence_embed)
+    shortcut = x
+    if block.scale_conv is not None:
+        shortcut = ops_nn.conv2d(x, block.scale_conv.weight,
+                                 block.scale_conv.bias)
+    return shortcut + block.gamma.to(x.dtype) * h

@@ -1,0 +1,22 @@
+"""Seeding (reference `src/utils.py:27-35`, seed 123321).
+
+Seeds Python's and numpy's global generators for host-side code and
+returns an explicit `torch.Generator` for the device: the port draws its
+random numbers from generators it passes around, never from torch's global
+one."""
+from __future__ import annotations
+
+import random
+
+import numpy as np
+import torch
+
+DEFAULT_SEED = 123321
+
+
+def fix_seed(seed: int = DEFAULT_SEED,
+             device: str | torch.device = "cpu") -> torch.Generator:
+    """Seed python/numpy and return a torch.Generator on `device`."""
+    random.seed(seed)
+    np.random.seed(seed)
+    return torch.Generator(device=device).manual_seed(seed)
