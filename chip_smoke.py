@@ -10,12 +10,15 @@ Phases (any failed check raises, so the run exits non-zero):
 1. Build: compiles every kernel source in `gan_codes_tpu_torch/csrc/` with
    one nvcc call for sm_90a into one library, prints the build seconds and
    the card's name and power limit.
-2. Kernels: calls each kernel's wrapper on the card at the shapes the served
-   256px generator gives it (batch 8; K2 at every DFBlock its `_supported`
-   takes, K1 at the ones it declines plus [8,128,128,64]), in float32 with
-   TF32 off and in bfloat16, and holds each result against the kernel's
-   plain PyTorch version on the same inputs. Prints errors, kernel / plain /
-   library times (CUDA events) and the bound.
+2. Kernels: calls each kernel's wrapper on the card at the shapes the main
+   paths give it (batch 8): K2 at every DFBlock its `_supported` takes, K1
+   and K1 bwd at the input of every DFBlock of a train step (14 DFBlocks,
+   10 distinct shapes; the served forward runs K1 on the two K2 declines),
+   in float32 with TF32 off and in bfloat16, and holds each result against
+   the kernel's plain PyTorch version on the same inputs. Prints errors,
+   kernel / plain / library times (CUDA events) and the bound, and K2's
+   backward (its autograd Function) against the plain composition's
+   autograd backward.
 3. Serve: writes seeded random full-width weights (256px, n_channels=32,
    vocab 5450, embed 300, hidden 256, every block gamma != 0) as
    reference-format `gen_1.pth` + `text_encoder.pth` + `captions.pickle`,
@@ -30,7 +33,19 @@ Phases (any failed check raises, so the run exits non-zero):
    by kernel group (torch.profiler) and Sampler throughput at batch 16 and
    64 in float32 and bfloat16, each over THROUGHPUT_WINDOWS windows of
    several seconds.
-4. Prints one {"kernels": [...]} line, the nvidia-smi line, and, last,
+4. Train: builds seeded full-width train states (G 256px n_channels 32,
+   D n_channels 32, every block gamma != 0) with `create_train_state`, a
+   seeded text encoder and a seeded batch of TRAIN_BATCH images in [-1, 1]
+   and random captions, and runs `make_train_step`'s 3-phase step:
+   TRAIN_STEPS steps in float32 (TF32 off) with the launch counters set to
+   0 just before and read just after (12 K2, 14 K1, 14 K1 bwd per step),
+   then in bfloat16; every metric must be finite. Prints train img/s over
+   two windows of at least TRAIN_WINDOW_S seconds (CUDA events), the peak
+   device memory, the device time of a step by kernel group
+   (torch.profiler) and of each phase apart (CUDA events). From one fp32
+   state, the phase-3 G gradients against one D, and then one whole step,
+   are held against the same through the plain versions.
+5. Prints one {"kernels": [...]} line, the nvidia-smi line, and, last,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -57,6 +72,9 @@ KERNEL_BATCH = 8
 LATENCY_REQUESTS = 300          # single-prompt HTTP requests, one at a time
 THROUGHPUT_BATCHES = {16: 300, 64: 150}  # several seconds per window
 THROUGHPUT_WINDOWS = 2
+TRAIN_BATCH = 24                 # the JAX package's TrainConfig default
+TRAIN_STEPS = 3                  # counted steps per dtype (main path)
+TRAIN_WINDOW_S = 3.5             # seconds per train throughput window
 H100_HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # CUDA cores, non-tensor
 H100_BF16_TENSOR_FLOPS = 989e12  # dense tensor cores
@@ -68,8 +86,19 @@ H100_BF16_TENSOR_FLOPS = 989e12  # dense tensor cores
 #   allclose(1e-4, 1e-4) with TF32 off; bf16 rounds the sum to bf16 before
 #   the bias add, as the plain version does, so one-ulp flips of the
 #   rounded sum are expected: max|err| <= 2^-6 * max|ref|.
+#   K1 bwd: dx rounds where the plain version rounds: fp32 allclose(1e-6),
+#   bf16 max|err| <= 2^-7 * max|ref|; dg1/db1/dg2/db2 add H*W products in
+#   fp32 in another order: fp32 allclose(1e-4), bf16 <= 2^-6 * max|ref|.
 #   The served image (phase 3, fp32) passes 14 DFBlocks, each reordered:
 #   allclose(1e-3, 1e-3).
+#   Train (phase 4, fp32), kernels against the plain versions from one
+#   state: the phase-3 G gradients against one D, and after one whole
+#   step, max|err| <= 1e-3 * max|ref| over all G gradients (the convs'
+#   sums are reordered; a scalar such as a block gamma sums 10^7 products
+#   that cancel, so a per-tensor ratio is printed, not held); the step's
+#   d_loss, d_gp_loss, g_loss rtol 1e-4. Adam with beta1 = 0 turns a
+#   near-zero D gradient into +-lr, so parameters after the step are not
+#   compared.
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -116,8 +145,25 @@ def dfblock_shapes(gcfg):
     return shapes
 
 
+def _held(name: str, got, want, fp32: bool, tol_fp32: float,
+          bf16_exp: int) -> float:
+    """max|err| of got against want; raises outside the tolerance: fp32
+    allclose(tol, tol), bf16 max|err| <= 2^bf16_exp * max|ref|."""
+    import torch
+
+    err = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    ok = (torch.allclose(got, want, atol=tol_fp32, rtol=tol_fp32) if fp32
+          else err <= 2.0 ** bf16_exp * top)
+    if not ok:
+        raise AssertionError(f"{name}: max|err| {err} (max|ref| {top}) "
+                             "outside tolerance")
+    return err
+
+
 def check_kernels(gcfg):
-    """Phase 2. Returns per-kernel summaries for the kernels line."""
+    """Phase 2. Returns per-kernel summaries for the kernels line and the
+    per-forward counts of K2 and K1 launches on the served path."""
     import torch
     import torch.nn.functional as F
 
@@ -130,32 +176,43 @@ def check_kernels(gcfg):
     k2_shapes = [s for s in shapes if fused_modconv._supported(
         torch.empty(3, 3, s[1], s[2], device="meta"))]
     k1_path = [(s[0], s[1]) for s in shapes if s not in k2_shapes]
-    k1_shapes = [(128, 64)] + [s for s in k1_path if s != (128, 64)]
+    # a train step runs K1 (forward, and backward) at every DFBlock input:
+    # forward on the two K2 declines, and inside K2's backward on the rest
+    k1_step = [(s[0], s[1]) for s in shapes]
     summary = {
         "fused_modconv3x3": dict(
             route="cuda", source="gan_codes_tpu_torch/csrc/fused_modconv.cu",
             replaces="gan_codes_tpu/ops/pallas/fused_modconv.py:118",
             ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-            max_abs_err=0.0, bound_by="operations",
+            max_abs_err=0.0, bound_by="operations", bwd_ms=0.0,
+            plain_bwd_ms=0.0, per="served forward",
             path_shapes=len(k2_shapes)),
         "fused_double_affine_leaky": dict(
             route="cuda", source="gan_codes_tpu_torch/csrc/fused_affine.cu",
             replaces="gan_codes_tpu/ops/pallas/fused_affine.py:71",
             ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
-            max_abs_err=0.0, bound_by="bytes", path_shapes=len(k1_path)),
+            max_abs_err=0.0, bound_by="bytes", ms_per_train_step=0.0,
+            per="served forward", path_shapes=len(k1_path)),
+        "fused_double_affine_leaky_bwd": dict(
+            route="cuda", source="gan_codes_tpu_torch/csrc/fused_affine.cu",
+            replaces="gan_codes_tpu/ops/pallas/fused_affine.py:133",
+            ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
+            max_abs_err=0.0, bound_by="bytes", per="train step",
+            path_shapes=len(k1_step)),
     }
     log(f"[kernels] per forward: K2 takes {len(k2_shapes)} DFBlocks "
-        f"{k2_shapes}, K1 takes {len(k1_path)} {k1_path}")
+        f"{k2_shapes}, K1 takes {len(k1_path)} {k1_path}; per train step "
+        f"K1 and K1 bwd take all {len(k1_step)}")
 
     def rand(*shape, dtype, scale=1.0):
         return (torch.randn(*shape, device=dev, generator=gen) * scale
                 ).to(dtype)
 
     for dtype in (torch.float32, torch.bfloat16):
-        name = "fp32" if dtype == torch.float32 else "bf16"
-        esize = 4 if dtype == torch.float32 else 2
-        peak = H100_FP32_FLOPS if dtype == torch.float32 \
-            else H100_BF16_TENSOR_FLOPS
+        fp32 = dtype == torch.float32
+        name = "fp32" if fp32 else "bf16"
+        esize = 4 if fp32 else 2
+        peak = H100_FP32_FLOPS if fp32 else H100_BF16_TENSOR_FLOPS
         for (hw, cin, cout) in k2_shapes:
             x = rand(B, hw, hw, cin, dtype=dtype)
             g1, b1, g2, b2 = (rand(B, cin, dtype=dtype) for _ in range(4))
@@ -165,16 +222,9 @@ def check_kernels(gcfg):
             out = fused_modconv.fused_modconv3x3(*args)
             ref = fused_modconv.reference_modconv3x3(*args)
             torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
+            err = _held(f"K2 {name} {(B, hw, hw, cin, cout)}", out, ref,
+                        fp32, 1e-4, -6)
             top = ref.float().abs().max().item()
-            if dtype == torch.float32:
-                ok = torch.allclose(out, ref, atol=1e-4, rtol=1e-4)
-            else:
-                ok = err <= 2.0 ** -6 * top
-            if not ok:
-                raise AssertionError(
-                    f"K2 {name} {(B, hw, hw, cin, cout)}: max|err| {err} "
-                    f"(max|ref| {top}) outside tolerance")
             iters = 20 if hw >= 64 else 50
             ms = cuda_ms(lambda: fused_modconv.fused_modconv3x3(*args), iters)
             plain = cuda_ms(lambda: fused_modconv.reference_modconv3x3(*args),
@@ -193,47 +243,87 @@ def check_kernels(gcfg):
                 f"kernel_ms {ms:.4f} plain_ms {plain:.4f} "
                 f"library_ms {lib:.4f} bound_ms {b_ms:.4f} ({b_by}) | "
                 f"{flops / ms / 1e9:.1f} TFLOP/s")
-            if dtype == torch.float32:
+            if fp32:
+                # K2's backward (K1 recompute, conv gradient, K1 bwd)
+                # against the plain composition's autograd backward
+                ins = [a.detach().requires_grad_() for a in args]
+                dy = rand(B, hw, hw, cout, dtype=dtype)
+                out = fused_modconv.fused_modconv3x3(*ins)
+                ref = fused_modconv.reference_modconv3x3(*ins)
+                bwd = cuda_ms(lambda: torch.autograd.grad(
+                    out, ins, dy, retain_graph=True), iters)
+                plain_bwd = cuda_ms(lambda: torch.autograd.grad(
+                    ref, ins, dy, retain_graph=True), iters)
+                log(f"[kernels] K2 backward fp32 x[{B},{hw},{hw},{cin}] -> "
+                    f"{cout}: Function bwd_ms {bwd:.4f} plain autograd "
+                    f"bwd_ms {plain_bwd:.4f}")
                 s = summary["fused_modconv3x3"]
                 s["ms"] += ms
                 s["plain_ms"] += plain
                 s["library_ms"] += lib
                 s["bound_ms"] += b_ms
+                s["bwd_ms"] += bwd
+                s["plain_bwd_ms"] += plain_bwd
                 s["max_abs_err"] = max(s["max_abs_err"], err)
-        for (hw, c) in k1_shapes:
+                del ins, out, ref
+        seen = {}
+        for (hw, c) in k1_step:
+            seen[(hw, c)] = seen.get((hw, c), 0) + 1
+        for (hw, c), n_step in seen.items():
             x = rand(B, hw, hw, c, dtype=dtype)
             vecs = [rand(B, c, dtype=dtype) for _ in range(4)]
+            dy = rand(B, hw, hw, c, dtype=dtype)
             out = fused_affine.fused_double_affine_leaky(x, *vecs)
             ref = fused_affine.reference_double_affine_leaky(x, *vecs)
+            got_b = fused_affine.fused_double_affine_leaky_bwd(x, *vecs, dy)
+            ref_b = fused_affine.reference_double_affine_leaky_bwd(x, *vecs,
+                                                                   dy)
             torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            top = ref.float().abs().max().item()
-            if dtype == torch.float32:
-                ok = torch.allclose(out, ref, atol=1e-6, rtol=1e-6)
-            else:
-                ok = err <= 2.0 ** -7 * top
-            if not ok:
-                raise AssertionError(
-                    f"K1 {name} {(B, hw, hw, c)}: max|err| {err} "
-                    f"(max|ref| {top}) outside tolerance")
+            tag = f"{name} {(B, hw, hw, c)}"
+            err = _held(f"K1 {tag}", out, ref, fp32, 1e-6, -7)
+            err_dx = _held(f"K1 bwd dx {tag}", got_b[0], ref_b[0], fp32,
+                           1e-6, -7)
+            err_v = max(_held(f"K1 bwd d{v} {tag}", g, r, fp32, 1e-4, -6)
+                        for v, g, r in zip(("g1", "b1", "g2", "b2"),
+                                           got_b[1:], ref_b[1:]))
+            iters = 20 if hw >= 128 else 50
             ms = cuda_ms(lambda: fused_affine.fused_double_affine_leaky(
-                x, *vecs), 50)
+                x, *vecs), iters)
             plain = cuda_ms(lambda: fused_affine.reference_double_affine_leaky(
-                x, *vecs), 50)
+                x, *vecs), iters)
+            bms = cuda_ms(lambda: fused_affine.fused_double_affine_leaky_bwd(
+                x, *vecs, dy), iters)
+            bplain = cuda_ms(
+                lambda: fused_affine.reference_double_affine_leaky_bwd(
+                    x, *vecs, dy), iters)
             n_bytes = (2 * x.numel() + 4 * B * c) * esize
-            flops = 6.0 * x.numel()  # 2 x (mul, add, leaky mul)
-            b_ms, b_by = bound(n_bytes, flops, H100_FP32_FLOPS)
-            log(f"[kernels] K1 {name} x[{B},{hw},{hw},{c}]: max_abs_err "
-                f"{err:.3g} max_rel_err {err / top:.3g} | kernel_ms "
-                f"{ms:.4f} plain_ms {plain:.4f} bound_ms {b_ms:.4f} "
-                f"({b_by}) | {n_bytes / ms / 1e6:.0f} GB/s"
-                + ("" if (hw, c) in k1_path else " (not on the port's path)"))
-            if dtype == torch.float32 and (hw, c) in k1_path:
+            b_ms, b_by = bound(n_bytes, 6.0 * x.numel(), H100_FP32_FLOPS)
+            # backward: read x and dy, write dx; read 4, write 4 [B, C]
+            bb_bytes = (3 * x.numel() + 8 * B * c) * esize
+            bb_ms, bb_by = bound(bb_bytes, 20.0 * x.numel(), H100_FP32_FLOPS)
+            top = ref.float().abs().max().item()
+            log(f"[kernels] K1 {name} x[{B},{hw},{hw},{c}] (x{n_step} per "
+                f"step, {k1_path.count((hw, c))} per served forward): "
+                f"max_abs_err {err:.3g} max_rel_err {err / top:.3g} | "
+                f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
+                f"{b_ms:.4f} ({b_by}) | {n_bytes / ms / 1e6:.0f} GB/s")
+            log(f"[kernels] K1 bwd {name} x[{B},{hw},{hw},{c}] (x{n_step} "
+                f"per step): max_abs_err dx {err_dx:.3g} dg/db {err_v:.3g} | "
+                f"kernel_ms {bms:.4f} plain_ms {bplain:.4f} bound_ms "
+                f"{bb_ms:.4f} ({bb_by}) | {bb_bytes / bms / 1e6:.0f} GB/s")
+            if fp32:
                 s = summary["fused_double_affine_leaky"]
-                s["ms"] += ms
-                s["plain_ms"] += plain
-                s["bound_ms"] += b_ms
+                n_served = k1_path.count((hw, c))
+                s["ms"] += n_served * ms
+                s["plain_ms"] += n_served * plain
+                s["bound_ms"] += n_served * b_ms
+                s["ms_per_train_step"] += n_step * ms
                 s["max_abs_err"] = max(s["max_abs_err"], err)
+                s = summary["fused_double_affine_leaky_bwd"]
+                s["ms"] += n_step * bms
+                s["plain_ms"] += n_step * bplain
+                s["bound_ms"] += n_step * bb_ms
+                s["max_abs_err"] = max(s["max_abs_err"], err_dx, err_v)
     return summary, len(k2_shapes), len(k1_path)
 
 
@@ -414,57 +504,331 @@ def _group(name: str) -> str:
         return "K2 fused_modconv3x3"
     if "fused_affine_fwd_kernel" in name:
         return "K1 fused_double_affine_leaky"
+    if "fused_affine_bwd" in name:
+        return "K1 bwd fused_double_affine_leaky_bwd"
     if "lstm" in low or "rnn" in low:
         return "LSTM (text encoder)"
+    if "multi_tensor_apply" in low or "foreach" in low:
+        return "optimizer (foreach Adam, clip, EMA)"
+    if "dgrad" in low:
+        return "cuDNN conv dgrad"
+    if "wgrad" in low:
+        return "cuDNN conv wgrad"
     if "fprop" in low or "conv" in low:
-        return "torch conv (cuDNN)"
-    if "gemm" in low or "cutlass" in low:
+        return "cuDNN conv fwd"
+    if "nchwtonhwc" in low or "nhwctonchw" in low:
+        return "copies"
+    if "gemm" in low or "cutlass" in low or "xmma" in low:
         return "GEMM (affine MLPs, linear_in)"
     if "copy" in low or "memset" in low or "memcpy" in low:
         return "copies"
     return "other elementwise"
 
 
-def profile_breakdown(sampler, captions, cap_lens, noise, n: int = 3):
-    """Device time per kernel group over `n` served batches, and the
-    device's idle share of the span from the first kernel to the last
-    (torch.profiler, CUPTI)."""
+def _profile(fn, n: int):
+    """Device time per kernel group and per kernel name over `n` calls of
+    `fn`, and the device's idle share of the span from the first kernel to
+    the last (torch.profiler, CUPTI). None when no device event was
+    recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    sampler.pipeline(captions, cap_lens, noise)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            sampler.pipeline(captions, cap_lens, noise)
+            fn()
         torch.cuda.synchronize()
-    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not spans:
+    # device kernels and copies; user annotations (such as the optimizer's
+    # "Optimizer.step#Adam.step" range) are spans, not device work
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    if not events:
         log("[profile] the profiler recorded no device events: device time "
             "by kernel not measured")
         return None
     groups, names = {}, {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in events:
         us = e.time_range.end - e.time_range.start
         groups[_group(e.name)] = groups.get(_group(e.name), 0.0) + us
         names[e.name] = names.get(e.name, 0.0) + us
     busy = sum(groups.values())
-    span = max(b for _, b in spans) - min(a for a, _ in spans)
-    out = {"batch": sampler.batch_size, "dtype": str(sampler.dtype),
-           "kernels_per_batch": len(spans) / n,
-           "device_busy_ms_per_batch": busy / n / 1e3,
-           "span_ms_per_batch": span / n / 1e3,
+    span = (max(e.time_range.end for e in events)
+            - min(e.time_range.start for e in events))
+    out = {"kernels_per_call": len(events) / n,
+           "device_busy_ms_per_call": busy / n / 1e3,
+           "span_ms_per_call": span / n / 1e3,
            "idle_share": 1.0 - busy / span,
-           "ms_per_batch": {k: v / n / 1e3 for k, v in
-                            sorted(groups.items(), key=lambda kv: -kv[1])}}
+           "ms_per_call": {k: v / n / 1e3 for k, v in
+                           sorted(groups.items(), key=lambda kv: -kv[1])}}
+    top = [(name, us / n / 1e3) for name, us in
+           sorted(names.items(), key=lambda kv: -kv[1])[:12]]
+    return out, top
+
+
+def profile_breakdown(sampler, captions, cap_lens, noise, n: int = 3):
+    """Device time of a served batch by kernel group, over `n` batches."""
+    res = _profile(lambda: sampler.pipeline(captions, cap_lens, noise), n)
+    if res is None:
+        return None
+    out, top = res
+    out = {"batch": sampler.batch_size, "dtype": str(sampler.dtype), **out}
     log("[profile] " + json.dumps(out))
-    for name, us in sorted(names.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"[profile] {us / n / 1e3:8.3f} ms/batch  {name[:110]}")
+    for name, ms in top[:8]:
+        log(f"[profile] {ms:8.3f} ms/batch  {name[:110]}")
     return out
+
+
+def _train_setup(dtype: str):
+    """Seeded full-width train state (every block gamma of G and D away
+    from 0), the frozen text encoder, the step, and a seeded batch."""
+    import torch
+
+    from gan_codes_tpu_torch.config import GANConfig, TrainConfig
+    from gan_codes_tpu_torch.models.text_encoder import RNNEncoder
+    from gan_codes_tpu_torch.train.state import create_train_state
+    from gan_codes_tpu_torch.train.step import make_train_step
+
+    cfg = GANConfig(train=TrainConfig(batch_size=TRAIN_BATCH,
+                                      compute_dtype=dtype))
+    state = create_train_state(cfg, SEED, device="cuda")
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for module in (state.generator, state.discriminator):
+            for name, p in module.named_parameters():
+                if name.endswith(".gamma"):
+                    p.copy_(torch.rand(1, generator=gen) * 0.5 + 0.25)
+        for e, p in zip(state.g_ema.parameters(),
+                        state.generator.parameters()):
+            e.copy_(p)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        te = RNNEncoder(cfg.text_encoder)
+    te = te.cuda().eval().requires_grad_(False)
+    dev = torch.Generator(device="cuda").manual_seed(SEED)
+    b, size = TRAIN_BATCH, cfg.generator.image_size
+    images = torch.rand((b, size, size, 3), generator=dev,
+                        device="cuda") * 2 - 1
+    captions = torch.randint(1, cfg.text_encoder.vocab_size,
+                             (b, cfg.text_encoder.max_len), generator=dev,
+                             device="cuda")
+    cap_lens = torch.randint(1, cfg.text_encoder.max_len + 1, (b,),
+                             generator=gen)
+    return cfg, state, te, make_train_step(cfg), (images, captions,
+                                                   cap_lens)
+
+
+def _counters():
+    from gan_codes_tpu_torch.ops.kernels import fused_affine, fused_modconv
+
+    return (fused_modconv.fused_modconv3x3,
+            fused_affine.fused_double_affine_leaky,
+            fused_affine.fused_double_affine_leaky_bwd)
+
+
+def train():
+    """Phase 4. Returns (K2, K1, K1 bwd launches over the counted steps,
+    train numbers)."""
+    import torch
+
+    from gan_codes_tpu_torch.train import losses
+
+    k2, k1, k1b = _counters()
+    numbers = {}
+    counts = None
+    for dtype in ("float32", "bfloat16"):
+        cfg, state, te, step, batch = _train_setup(dtype)
+        log(f"[train] {dtype}: 256px batch {TRAIN_BATCH}, G "
+            f"{sum(p.numel() for p in state.generator.parameters())} and D "
+            f"{sum(p.numel() for p in state.discriminator.parameters())} "
+            "params")
+        if dtype == "float32":
+            k2.launches = k1.launches = k1b.launches = 0  # main path
+            metrics = [step(state, te, *batch) for _ in range(TRAIN_STEPS)]
+            counts = (k2.launches, k1.launches, k1b.launches)  # ends here
+            want = (12 * TRAIN_STEPS, 14 * TRAIN_STEPS, 14 * TRAIN_STEPS)
+            log(f"[train] launches over {TRAIN_STEPS} steps: K2 {counts[0]}, "
+                f"K1 {counts[1]}, K1 bwd {counts[2]} (want {want})")
+            if counts != want:
+                raise AssertionError(f"launch counters {counts} != {want}")
+        else:
+            metrics = [step(state, te, *batch) for _ in range(TRAIN_STEPS)]
+        rows = [{k: v.item() for k, v in m.items()} for m in metrics]
+        for i, r in enumerate(rows):
+            log(f"[train] {dtype} step {i}: {json.dumps(r)}")
+            if not all(np.isfinite(v) for v in r.values()):
+                raise AssertionError(f"non-finite metrics at step {i}: {r}")
+
+        # throughput: two windows of >= 3 s each, CUDA events
+        t0 = time.perf_counter()
+        step(state, te, *batch)
+        torch.cuda.synchronize()
+        n = max(3, int(np.ceil(TRAIN_WINDOW_S / (time.perf_counter() - t0))))
+        torch.cuda.reset_peak_memory_stats()
+        windows = []
+        for _ in range(2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                step(state, te, *batch)
+            end.record()
+            end.synchronize()
+            windows.append(n * TRAIN_BATCH / (start.elapsed_time(end) / 1e3))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        numbers[f"img_per_s_{dtype}"] = windows
+        numbers[f"peak_gib_{dtype}"] = peak
+        log(f"[train] {dtype} throughput, 2 windows of {n} steps "
+            f"({n * TRAIN_BATCH / min(windows):.1f} s at most): "
+            f"{', '.join(f'{v:.2f}' for v in windows)} img/s; peak memory "
+            f"{peak:.2f} GiB")
+        res = _profile(lambda: step(state, te, *batch), 2)
+        if res is not None:
+            out, top = res
+            out = {"batch": TRAIN_BATCH, "dtype": dtype, **out}
+            numbers[f"profile_{dtype}"] = out
+            log("[profile] train step " + json.dumps(out))
+            for name, ms in top:
+                log(f"[profile] {ms:8.3f} ms/step  {name[:110]}")
+        del state, step
+
+    # (a) phase 3 alone against one D: G forward + backward (the kernels'
+    # backward) from one state, through the kernels and through the plain
+    # versions; (b) one whole fp32 step from one state each way
+    cfg, state, te, step, (images, captions, cap_lens) = _train_setup(
+        "float32")
+    noise = torch.randn((TRAIN_BATCH, cfg.generator.latent_dim),
+                        generator=torch.Generator(device="cuda"
+                                                  ).manual_seed(SEED),
+                        device="cuda")
+    numbers["phase_ms"] = _phase_times(state, te, images, captions,
+                                       cap_lens, noise, cfg.loss)
+    log(f"[train] fp32 device ms by phase (CUDA events, 3 calls each): "
+        f"{json.dumps(numbers['phase_ms'])}")
+    g_params = list(state.generator.named_parameters())
+
+    def phase3_grads():
+        with torch.no_grad():
+            sents = te(captions, cap_lens).float()
+        fake = state.generator(noise, sents)
+        loss = losses.g_hinge_loss(state.discriminator, fake, sents)
+        return dict(zip((n for n, _ in g_params), torch.autograd.grad(
+            loss, [p for _, p in g_params])))
+
+    grads = [_plain_or_kernels(plain, phase3_grads) for plain in (False,
+                                                                  True)]
+    one_d = _grad_gap(*grads)
+    log(f"[train] phase-3 G gradients against one D, kernels vs plain "
+        f"versions: {_gap_text(one_d)}")
+    if one_d["max_err"] > 1e-3 * one_d["max_ref"]:
+        raise AssertionError(f"phase-3 G gradients against one D: {one_d}")
+    del state, step, grads
+
+    results = []
+    for plain in (False, True):
+        cfg, state, te, step, batch = _train_setup("float32")
+        m = _plain_or_kernels(plain, lambda: step(state, te, *batch,
+                                                  noise=noise))
+        results.append(({k: v.item() for k, v in m.items()},
+                        {name: p.grad.detach().clone() for name, p in
+                         state.generator.named_parameters()}))
+        del state, step
+    (m_k, g_k), (m_p, g_p) = results
+    for key in ("d_loss", "d_gp_loss", "g_loss"):
+        if not np.isclose(m_k[key], m_p[key], rtol=1e-4, atol=0.0):
+            raise AssertionError(f"{key}: kernels {m_k[key]} plain "
+                                 f"{m_p[key]}")
+    step_gap = _grad_gap(g_k, g_p)
+    log(f"[train] one fp32 step, kernels vs plain versions: losses "
+        f"{json.dumps(m_k)} vs {json.dumps(m_p)}; phase-3 G gradients: "
+        f"{_gap_text(step_gap)}")
+    if step_gap["max_err"] > 1e-3 * step_gap["max_ref"]:
+        raise AssertionError(f"phase-3 G gradients of one step: {step_gap}")
+    numbers["vs_plain"] = {"kernels": m_k, "plain": m_p,
+                           "step_g_grads": step_gap, "one_d_g_grads": one_d}
+    return counts, numbers
+
+
+def _grad_gap(got: dict, want: dict) -> dict:
+    """max|err| over all gradients against the largest |ref| among them,
+    and the tensor whose own max|err| / max|ref| is largest."""
+    errs = {n: (got[n] - want[n]).abs().max().item() for n in want}
+    tops = {n: want[n].abs().max().item() for n in want}
+    worst = max(want, key=lambda n: errs[n] / max(tops[n], 1e-30))
+    return {"max_err": max(errs.values()), "max_ref": max(tops.values()),
+            "worst_tensor": worst,
+            "worst_tensor_ratio": errs[worst] / max(tops[worst], 1e-30)}
+
+
+def _gap_text(gap: dict) -> str:
+    return (f"max|err| {gap['max_err']:.3g} against max|ref| "
+            f"{gap['max_ref']:.3g} ({gap['max_err'] / gap['max_ref']:.3g}); "
+            f"largest per-tensor ratio {gap['worst_tensor_ratio']:.3g} "
+            f"({gap['worst_tensor']})")
+
+
+def _plain_or_kernels(plain: bool, fn):
+    """fn() with the DFBlocks dispatched to the kernels, or to the plain
+    versions (patched as for the served batch); the plain run must launch
+    no kernel."""
+    from unittest import mock
+
+    from gan_codes_tpu_torch.ops import blocks, fusion
+    from gan_codes_tpu_torch.ops.kernels import fused_affine, fused_modconv
+
+    counters = _counters()
+    with mock.patch.object(
+            blocks, "fused_modconv3x3",
+            fused_modconv.reference_modconv3x3 if plain
+            else fused_modconv.fused_modconv3x3), \
+            mock.patch.object(
+                fusion, "fused_double_affine_leaky",
+                fused_affine.reference_double_affine_leaky if plain
+                else fused_affine.fused_double_affine_leaky):
+        before = [c.launches for c in counters]
+        out = fn()
+        if plain and [c.launches for c in counters] != before:
+            raise AssertionError("the plain versions launched a kernel")
+    return out
+
+
+def _phase_times(state, te, images, captions, cap_lens, noise, loss_cfg):
+    """Device ms of each part of an fp32 step, apart (CUDA events, after a
+    warm call): the G forward + backward, the phase-1 D hinge gradient, the
+    phase-2 MA-GP gradient (double backward), and phase 3's D forward +
+    input gradient. D is not updated."""
+    import torch
+
+    from gan_codes_tpu_torch.train import losses
+
+    g, d = state.generator, state.discriminator
+    with torch.no_grad():
+        sents = te(captions, cap_lens).float()
+    fake = g(noise, sents).detach()
+    d_params, g_params = list(d.parameters()), list(g.parameters())
+
+    def g_fwd_bwd():
+        out = g(noise, sents)
+        torch.autograd.grad(out, g_params, torch.ones_like(out))
+
+    def phase1():
+        torch.autograd.grad(losses.d_hinge_loss(d, images, fake, sents),
+                            d_params)
+
+    def phase2():
+        torch.autograd.grad(
+            losses.ma_gradient_penalty(d, images, sents, loss_cfg),
+            d_params, allow_unused=True)
+
+    def phase3_d():
+        f = fake.detach().requires_grad_(True)
+        torch.autograd.grad(losses.g_hinge_loss(d, f, sents), f)
+
+    return {name: cuda_ms(fn, 3) for name, fn in (
+        ("g_fwd_bwd", g_fwd_bwd), ("phase1_d_hinge", phase1),
+        ("phase2_ma_gp", phase2), ("phase3_d", phase3_d))}
 
 
 def main() -> int:
@@ -489,7 +853,10 @@ def main() -> int:
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
 
+    t0 = time.perf_counter()
     summary, k2_n, k1_n = check_kernels(GeneratorConfig())
+    log(f"[kernels] phase took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR,
                                      prefix="smoke_") as root:
@@ -498,19 +865,30 @@ def main() -> int:
         write_weights(root)
         k2, k1, numbers = serve(root, k2_n, k1_n)
     log("[serve] " + json.dumps(numbers))
-    summary["fused_modconv3x3"]["launches"] = k2
-    summary["fused_double_affine_leaky"]["launches"] = k1
+    log(f"[serve] phase took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    (t_k2, t_k1, t_k1b), train_numbers = train()
+    log("[train] " + json.dumps(train_numbers))
+    log(f"[train] phase took {time.perf_counter() - t0:.1f}s")
+    launches = {"fused_modconv3x3": {"serve": k2, "train": t_k2},
+                "fused_double_affine_leaky": {"serve": k1, "train": t_k1},
+                "fused_double_affine_leaky_bwd": {"serve": 0,
+                                                  "train": t_k1b}}
     kernels = []
     for name, s in summary.items():
-        kernels.append({"name": name, "route": s["route"],
-                        "source": s["source"], "replaces": s["replaces"],
-                        "launches": s["launches"],
-                        "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-                        "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                        "bound_by": s["bound_by"],
-                        "library_ms": s["library_ms"],
-                        "dtype": "float32", "batch": KERNEL_BATCH,
-                        "shapes_per_forward": s["path_shapes"]})
+        entry = {"name": name, "route": s["route"], "source": s["source"],
+                 "replaces": s["replaces"],
+                 "launches": sum(launches[name].values()),
+                 "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                 "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+                 "launches_by_path": launches[name], "dtype": "float32",
+                 "batch": KERNEL_BATCH, "ms_per": s["per"],
+                 "shapes_per_call": s["path_shapes"]}
+        for extra in ("bwd_ms", "plain_bwd_ms", "ms_per_train_step"):
+            if extra in s:
+                entry[extra] = s[extra]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

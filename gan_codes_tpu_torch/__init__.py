@@ -1,8 +1,9 @@
 """PyTorch / CUDA port of the Deep-Fusion-GAN framework, for one NVIDIA H100.
 
-The serving slice: prompt -> text encoder -> generator -> 256px image, with
-every DFBlock of the generator running through hand-written CUDA kernels
-(`ops/kernels/`, sources in `csrc/`). It keeps the JAX package's layout and
+Serving (prompt -> text encoder -> generator -> 256px image) and the 3-phase
+GAN train step, with every DFBlock of the generator running through
+hand-written CUDA kernels (`ops/kernels/`, sources in `csrc/`), forward and
+backward. It keeps the JAX package's layout and
 module names, NHWC at its public functions, and the reference's state_dict
 key names, so reference `gen_N.pth` / `text_encoder.pth` files load as-is.
 

@@ -73,8 +73,7 @@ class GeneratorConfig:
 @dataclasses.dataclass(frozen=True)
 class DiscriminatorConfig:
     """Matching-aware discriminator (reference
-    `src/discriminator/model.py:8-58`). Not ported yet; kept so configs
-    round-trip."""
+    `src/discriminator/model.py:8-58`)."""
 
     n_channels: int = 32
     sentence_dim: int = 256

@@ -1,5 +1,6 @@
-// Device helpers shared by the DFBlock kernels (fused_affine.cu, K1, and
-// fused_modconv.cu, K2): dtype conversion and the double affine modulation.
+// Device helpers shared by the DFBlock kernels (fused_affine.cu, K1 forward
+// and backward, and fused_modconv.cu, K2): dtype conversion and the double
+// affine modulation.
 //
 // Both kernels round every modulation op to the working dtype T with
 // round-to-nearest intrinsics and no FMA contraction, as the plain PyTorch
@@ -32,18 +33,23 @@ template <typename T> __device__ __forceinline__ float rt(float v) {
   return to_f<T>(from_f<T>(v));
 }
 
+// a * b rounded to T, never contracted into an FMA.
+template <typename T> __device__ __forceinline__ float mul_t(float a, float b) {
+  return rt<T>(__fmul_rn(a, b));
+}
+
 template <typename T>
 __device__ __forceinline__ float lrelu_t(float y) {
-  return y >= 0.f ? y : rt<T>(__fmul_rn(y, kSlope));
+  return y >= 0.f ? y : mul_t<T>(y, kSlope);
 }
 
 // lrelu(g2 * lrelu(g1 * x + b1) + b2), each op rounded to T.
 template <typename T>
 __device__ __forceinline__ float mod_chain(float x, float g1, float b1,
                                            float g2, float b2) {
-  float y = rt<T>(__fadd_rn(rt<T>(__fmul_rn(g1, x)), b1));
+  float y = rt<T>(__fadd_rn(mul_t<T>(g1, x), b1));
   y = lrelu_t<T>(y);
-  float z = rt<T>(__fadd_rn(rt<T>(__fmul_rn(g2, y)), b2));
+  float z = rt<T>(__fadd_rn(mul_t<T>(g2, y), b2));
   return lrelu_t<T>(z);
 }
 

@@ -1,2 +1,2 @@
-"""Models of the port: the generator, the text encoder, and reference-format
-weight loading (`torch_import`)."""
+"""Models of the port: the generator, the discriminator, the text encoder,
+and reference-format weight loading (`torch_import`)."""

@@ -1,5 +1,5 @@
-"""Reference-format weights for the port (the serving half of
-`gan_codes_tpu/models/torch_import.py`).
+"""Reference-format weights for the port (the port of the serving and
+export halves of `gan_codes_tpu/models/torch_import.py`).
 
 The port's modules carry the reference's state_dict names, so a reference
 `gen_N.pth` (or the `generator` entry of a `checkpoint.pt`) and
@@ -168,4 +168,22 @@ def text_encoder_state_dict_from_jax(params: Dict) -> StateDict:
         sd[f"rnn.weight_hh_l0{suffix}"] = _t(d["w_hh"]).t().contiguous()
         sd[f"rnn.bias_ih_l0{suffix}"] = _t(d["b_ih"])
         sd[f"rnn.bias_hh_l0{suffix}"] = _t(d["b_hh"])
+    return sd
+
+
+def discriminator_state_dict_from_jax(params: Dict) -> StateDict:
+    """The JAX package's discriminator tree -> a reference-keyed state_dict
+    (the same mapping as the JAX package's `export_discriminator_state_dict`,
+    `torch_import.py:474-489`)."""
+    sd: StateDict = {}
+    _conv(sd, "img_forward.0", params["conv_stem"])
+    for i, bp in enumerate(params["blocks"]):
+        p = f"img_forward.{i + 1}"
+        _conv(sd, f"{p}.residual_conv.0", bp["conv_1"])
+        _conv(sd, f"{p}.residual_conv.2", bp["conv_2"])
+        if "shortcut_conv" in bp:
+            _conv(sd, f"{p}.scale_conv", bp["shortcut_conv"])
+        sd[f"{p}.gamma"] = _t(bp["gamma"]).reshape(1)
+    _conv(sd, "img_sentence_forward.0", params["conv_joint"])
+    _conv(sd, "img_sentence_forward.2", params["conv_logit"])
     return sd

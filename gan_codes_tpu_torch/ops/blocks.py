@@ -1,4 +1,4 @@
-"""Generator residual block (the generator half of
+"""Generator and discriminator residual blocks (the port of
 `gan_codes_tpu/ops/blocks.py`).
 
 `ResidualBlockG` holds the reference ResidualBlockG's parameters under its
@@ -10,7 +10,16 @@ LeakyReLU, then a 3x3 conv), the shortcut, and `shortcut + gamma * h`.
 
 Each DFBlock dispatches as the JAX package's kernel path does
 (`blocks.py:74-86`): to kernel K2 (`fused_modconv3x3`) where its
-`_supported` holds, else to kernel K1 plus a torch conv.
+`_supported` holds, else to kernel K1 plus a torch conv. Both kernels are
+autograd Functions, so gradients reach the affine MLPs, the conv weights
+(through the HWIO copy) and `gamma`.
+
+`ResidualBlockD` holds the reference ResidualBlockD's parameters
+(`src/discriminator/residual_block.py:7-30`): `residual_conv.{0,2}` (4x4
+stride-2 and 3x3 convs, no bias, each followed by LeakyReLU), `scale_conv`
+(1x1, only when the channel count changes) and `gamma`. `res_block_d` is
+its forward. D has no kernel of its own: its convs stay torch ops, which
+the MA-GP differentiates twice.
 """
 from __future__ import annotations
 
@@ -71,4 +80,39 @@ def res_block_g(block: ResidualBlockG, x: torch.Tensor,
     if block.scale_conv is not None:
         shortcut = ops_nn.conv2d(x, block.scale_conv.weight,
                                  block.scale_conv.bias)
+    return shortcut + block.gamma.to(x.dtype) * h
+
+
+class ResidualBlockD(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.residual_conv = nn.Sequential(
+            nn.Conv2d(in_ch, out_ch, 4, 2, 1, bias=False), nn.LeakyReLU(0.2),
+            nn.Conv2d(out_ch, out_ch, 3, 1, 1, bias=False),
+            nn.LeakyReLU(0.2))
+        self.scale_conv = (nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch
+                           else None)
+        self.gamma = nn.Parameter(torch.zeros(1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return res_block_d(self, x)
+
+
+def res_block_d(block: ResidualBlockD, x: torch.Tensor) -> torch.Tensor:
+    """x [B, H, W, Cin] NHWC -> [B, H/2, W/2, Cout].
+
+    The shortcut is computed as the JAX package computes it
+    (`blocks.py:225-234`): avg_pool(conv1x1(x) + bias) is one 2x2 stride-2
+    conv whose kernel is the 1x1 kernel / 4 over the window (bias
+    unchanged); the identity branch is the plain 2x2 pool."""
+    h = ops_nn.conv2d(x, block.residual_conv[0].weight, stride=2, padding=1)
+    h = ops_nn.leaky_relu(h)
+    h = ops_nn.conv2d(h, block.residual_conv[2].weight, padding=1)
+    h = ops_nn.leaky_relu(h)
+    if block.scale_conv is not None:
+        w = block.scale_conv.weight / 4.0
+        shortcut = ops_nn.conv2d(x, w.expand(-1, -1, 2, 2),
+                                 block.scale_conv.bias, stride=2)
+    else:
+        shortcut = ops_nn.avg_pool2d(x, 2)
     return shortcut + block.gamma.to(x.dtype) * h

@@ -8,12 +8,19 @@
 The whole DFBlock (`src/generator/residual_block.py:35-40`) with h kept out
 of device memory. It replaces the Pallas TPU kernel
 `gan_codes_tpu/ops/pallas/fused_modconv.py::fused_modconv3x3` (forward; the
-JAX package's backward is the plain composition and needs no kernel).
+JAX package's backward is the plain composition, `fused_modconv.py:192-203`,
+and needs no kernel of its own).
 
 The CUDA kernel is `csrc/fused_modconv.cu`, a direct convolution on the fp32
 CUDA cores that modulates each halo tile in shared memory. A CPU tensor
 takes the plain PyTorch version below, `reference_modconv3x3`; a CUDA tensor
 launches the kernel or raises.
+
+`fused_modconv3x3` is a `torch.autograd.Function`. Its backward keeps K2's
+design of never writing h to memory in the forward: it saves x, recomputes
+h with K1's forward, takes dh, dw and dbias from the convolution's gradient
+(`torch.nn.grad`, as the JAX backward is XLA's), then dx, dg1, db1, dg2 and
+db2 from K1's backward kernel.
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .fused_affine import _DTYPES, reference_double_affine_leaky
+from . import fused_affine
+from .fused_affine import _DTYPES, _on_cuda, reference_double_affine_leaky
 
 COUT_TILE = 64  # output channels per CUDA block (csrc/fused_modconv.cu: CO)
 
@@ -82,26 +90,15 @@ def _check(x, g1, b1, g2, b2, w, bias) -> None:
             raise ValueError(f"{name} on {v.device}, x on {x.device}")
 
 
-def fused_modconv3x3(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
-                     g2: torch.Tensor, b2: torch.Tensor, w: torch.Tensor,
-                     bias: torch.Tensor) -> torch.Tensor:
-    """conv3x3_same(lrelu(g2 * lrelu(g1 * x + b1) + b2), w) + bias.
-
-    CPU tensors run the plain version; CUDA tensors must be contiguous and
-    `_supported`, and run the kernel (each launch adds one to
-    `fused_modconv3x3.launches`)."""
-    _check(x, g1, b1, g2, b2, w, bias)
+def _forward(x, g1, b1, g2, b2, w, bias) -> torch.Tensor:
+    """K2 forward: the plain version for a CPU tensor, else the kernel."""
     if x.device.type == "cpu":
         return reference_modconv3x3(x, g1, b1, g2, b2, w, bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+    _on_cuda(("x", "g1", "b1", "g2", "b2", "w", "bias"),
+             (x, g1, b1, g2, b2, w, bias))
     if not _supported(w):
         raise ValueError(f"fused_modconv3x3 takes Cout % {COUT_TILE} == 0, "
                          f"got w {tuple(w.shape)}")
-    for name, t in zip(("x", "g1", "b1", "g2", "b2", "w", "bias"),
-                       (x, g1, b1, g2, b2, w, bias)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     b, h, wd, cin = x.shape
     cout = w.shape[3]
     out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
@@ -119,6 +116,50 @@ def fused_modconv3x3(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
                            f"{x.dtype})")
     fused_modconv3x3.launches += 1
     return out
+
+
+class _FusedModConv3x3(torch.autograd.Function):
+    """Forward K2; backward K1 fwd (recompute h), the conv gradient, K1
+    bwd."""
+
+    @staticmethod
+    def forward(ctx, x, g1, b1, g2, b2, w, bias):
+        ctx.save_for_backward(x, g1, b1, g2, b2, w)
+        return _forward(x, g1, b1, g2, b2, w, bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, g1, b1, g2, b2, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        h = fused_affine._forward(x, g1, b1, g2, b2)
+        w_oihw = w.permute(3, 2, 0, 1)
+        dy_nchw = dy.permute(0, 3, 1, 2)
+        dh = torch.nn.grad.conv2d_input(
+            (x.shape[0], x.shape[3], x.shape[1], x.shape[2]), w_oihw,
+            dy_nchw, padding=1).permute(0, 2, 3, 1).contiguous()
+        dw = dbias = None
+        if ctx.needs_input_grad[5]:
+            dw = torch.nn.grad.conv2d_weight(
+                h.permute(0, 3, 1, 2), w_oihw.shape, dy_nchw,
+                padding=1).permute(2, 3, 1, 0)
+        if ctx.needs_input_grad[6]:
+            dbias = dy.sum(dim=(0, 1, 2))
+        dx, dg1, db1, dg2, db2 = fused_affine.fused_double_affine_leaky_bwd(
+            x, g1, b1, g2, b2, dh)
+        return dx, dg1, db1, dg2, db2, dw, dbias
+
+
+def fused_modconv3x3(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
+                     g2: torch.Tensor, b2: torch.Tensor, w: torch.Tensor,
+                     bias: torch.Tensor) -> torch.Tensor:
+    """conv3x3_same(lrelu(g2 * lrelu(g1 * x + b1) + b2), w) + bias.
+
+    Differentiable in all seven inputs. CPU tensors run the plain versions;
+    CUDA tensors must be contiguous and `_supported`, and run the kernels
+    (each forward launch adds one to `fused_modconv3x3.launches`; the
+    backward launches K1 and K1 bwd, and counts on their counters)."""
+    _check(x, g1, b1, g2, b2, w, bias)
+    return _FusedModConv3x3.apply(x, g1, b1, g2, b2, w, bias)
 
 
 fused_modconv3x3.launches = 0

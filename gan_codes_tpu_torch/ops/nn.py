@@ -43,6 +43,12 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope)
 
 
+def avg_pool2d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
+    """F.avg_pool2d(x, window) (stride = window, VALID) on NHWC."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), window).permute(
+        0, 2, 3, 1).contiguous()
+
+
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """F.interpolate(scale_factor=2) (mode 'nearest') on NHWC."""
     n, h, w, c = x.shape

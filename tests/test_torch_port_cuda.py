@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, on a card:
+K1 forward and backward, K2 forward, and the gradients of both kernels'
+autograd Functions against the plain versions' autograd.
 
 Every test here is marked `cuda` and skips without a CUDA device. On a
 machine with one (and nvcc), with or without JAX installed:
@@ -84,6 +86,77 @@ class TestKernelsOnCard:
         got = fused_modconv.fused_modconv3x3(*args)
         want = fused_modconv.reference_modconv3x3(*args)
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape", [(2, 48, 48, 8), (3, 5, 7, 6),
+                                       (2, 16, 16, 256), (1, 3, 5, 2048)])
+    def test_k1_bwd(self, cuda, dtype, shape):
+        """Many pixel tiles, the scalar path (C = 6), the vector path, and
+        more channel vectors than threads (C = 2048 fp32). dx rounds where
+        the plain version rounds; the four sums add in another order:
+        fp32 dx allclose 1e-6, sums 1e-4; bf16 dx <= 2^-7 max|ref|, sums
+        <= 2^-6 max|ref|. The result repeats bit for bit."""
+        x, *vecs = [torch.from_numpy(a).to(cuda, dtype)
+                    for a in _k1_inputs(shape)]
+        x[:, ::2] = 0  # exact zeros in y1 and y2 where b1 = b2 = 0
+        vecs[1][:, ::2] = 0
+        vecs[3][:, ::2] = 0
+        dy = torch.randn(shape, device=cuda).to(dtype)
+        before = fused_affine.fused_double_affine_leaky_bwd.launches
+        got = fused_affine.fused_double_affine_leaky_bwd(x, *vecs, dy)
+        again = fused_affine.fused_double_affine_leaky_bwd(x, *vecs, dy)
+        want = fused_affine.reference_double_affine_leaky_bwd(x, *vecs, dy)
+        torch.cuda.synchronize()
+        assert fused_affine.fused_double_affine_leaky_bwd.launches \
+            == before + 2
+        for i, (g, a, w) in enumerate(zip(got, again, want)):
+            assert torch.equal(g, a)
+            if dtype == torch.float32:
+                tol = 1e-6 if i == 0 else 1e-4
+                torch.testing.assert_close(g, w, atol=tol, rtol=tol)
+            else:
+                err = (g.float() - w.float()).abs().max().item()
+                top = w.float().abs().max().item()
+                assert err <= 2.0 ** (-7 if i == 0 else -6) * top
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("kernel", ["k1", "k2"])
+    def test_gradients_reach_the_inputs(self, cuda, dtype, kernel):
+        """Inputs that require grad give an output with a grad_fn; one
+        backward launches K1 bwd once (and, for K2, K1's forward once to
+        recompute h); the gradients match the plain versions' autograd:
+        fp32 (TF32 off) allclose 1e-4, bf16 max|err| <= 2^-6 max|ref|."""
+        if kernel == "k1":
+            arrays = _k1_inputs((2, 16, 16, 64))
+            fn = fused_affine.fused_double_affine_leaky
+            ref = fused_affine.reference_double_affine_leaky
+        else:
+            arrays = _k2_inputs(2, 16, 16, 32, 64)
+            fn = fused_modconv.fused_modconv3x3
+            ref = fused_modconv.reference_modconv3x3
+        ins = [torch.from_numpy(a).to(cuda, dtype).requires_grad_()
+               for a in arrays]
+        ref_ins = [t.detach().clone().requires_grad_() for t in ins]
+        k1, k1_bwd = (fused_affine.fused_double_affine_leaky,
+                      fused_affine.fused_double_affine_leaky_bwd)
+        k2 = fused_modconv.fused_modconv3x3
+        counts = [k1.launches, k1_bwd.launches, k2.launches]
+        out = fn(*ins)
+        assert out.grad_fn is not None
+        r = torch.randn(out.shape, device=cuda).to(dtype)
+        (out * r).sum().backward()
+        (ref(*ref_ins) * r).sum().backward()
+        torch.cuda.synchronize()
+        moved = [k1.launches - counts[0], k1_bwd.launches - counts[1],
+                 k2.launches - counts[2]]
+        assert moved == ([1, 1, 0] if kernel == "k1" else [1, 1, 1])
+        for t, w in zip(ins, ref_ins):
+            if dtype == torch.float32:
+                torch.testing.assert_close(t.grad, w.grad, atol=1e-4,
+                                           rtol=1e-4)
+            else:
+                err = (t.grad.float() - w.grad.float()).abs().max().item()
+                assert err <= 2.0 ** -6 * w.grad.float().abs().max().item()
 
     def test_k2_refuses_unsupported_cout(self, cuda):
         args = [torch.from_numpy(a).to(cuda)

@@ -34,6 +34,7 @@ from gan_codes_tpu_torch.models.generator import Generator
 from gan_codes_tpu_torch.models.text_encoder import RNNEncoder
 from gan_codes_tpu_torch.models.torch_import import (
     generator_state_dict_from_jax, text_encoder_state_dict_from_jax)
+from gan_codes_tpu_torch.train.state import create_train_state
 from gan_codes_tpu_torch.utils import image_io
 from gan_codes_tpu_torch.utils.seeding import fix_seed
 
@@ -374,6 +375,7 @@ class TestPortPromises:
                                 str(tmp_path / "o"), "a bird"]),
             lambda: serve._cli(["--data", args[0], "--text-encoder", args[1],
                                 "--weights", args[2], "--http", "0"]),
+            lambda: create_train_state(cfg, seed=0),
         ]
         for call in calls:
             with pytest.raises(RuntimeError, match="device='cpu'"):
