@@ -18,7 +18,12 @@ Phases (any failed check raises, so the run exits non-zero):
    the kernel's plain PyTorch version on the same inputs. Prints errors,
    kernel / plain / library times (CUDA events) and the bound, and K2's
    backward (its autograd Function) against the plain composition's
-   autograd backward.
+   autograd backward. K3 (`fused_resblock_g`, on no model path) runs at
+   the 7 residual-block shapes of the 256px generator, batch 8, in both
+   dtypes, against its plain version, with its time beside the port's
+   current way to compute a block (`composition_ms`: K2, or K1 and cuDNN,
+   per DFBlock, the cuDNN 1x1 shortcut, the residual add), and its backward
+   (fp32) against the plain composition's autograd.
 3. Serve: writes seeded random full-width weights (256px, n_channels=32,
    vocab 5450, embed 300, hidden 256, every block gamma != 0) as
    reference-format `gen_1.pth` + `text_encoder.pth` + `captions.pickle`,
@@ -45,7 +50,22 @@ Phases (any failed check raises, so the run exits non-zero):
    (torch.profiler) and of each phase apart (CUDA events). From one fp32
    state, the phase-3 G gradients against one D, and then one whole step,
    are held against the same through the plain versions.
-5. Prints one {"kernels": [...]} line, the nvidia-smi line, and, last,
+5. Train entry: writes a synthetic CUB fixture (`make_synthetic_cub`,
+   48 train and 24 test images of 256-511 px) and a seeded text encoder,
+   then runs `train_entry.train` at full width (256px, n_channels 32,
+   batch 24, fp32, 2 steps per epoch): run A, 2 epochs uninterrupted; run
+   B, 1 epoch, then a second call with 2 epochs on the same directories,
+   which must print "Resuming from epoch 1". Holds: the state B's second
+   call restored equals the state B saved, bit for bit (parameters, EMA,
+   Adam moments, step, RNG); B's second-epoch losses within rtol 1e-3 of
+   A's (cuDNN is not deterministic run to run); the checkpoint files,
+   one metrics row per epoch and the sample grid exist; the launch
+   counters rise by 12 K2, 14 K1 and 14 K1 bwd per step plus 12 K2 and 2
+   K1 per eval batch; `build_sampler` serves B's `gen_1.pth` over HTTP.
+   Prints the trainer's img/s with the device time of its steps and
+   copies and the host's data wait, eval and checkpoint seconds, beside
+   the bare step's img/s of phase 4.
+6. Prints one {"kernels": [...]} line, the nvidia-smi line, and, last,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -75,6 +95,7 @@ THROUGHPUT_WINDOWS = 2
 TRAIN_BATCH = 24                 # the JAX package's TrainConfig default
 TRAIN_STEPS = 3                  # counted steps per dtype (main path)
 TRAIN_WINDOW_S = 3.5             # seconds per train throughput window
+ENTRY_TRAIN, ENTRY_TEST = 48, 24  # synthetic CUB images for the train entry
 H100_HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # CUDA cores, non-tensor
 H100_BF16_TENSOR_FLOPS = 989e12  # dense tensor cores
@@ -89,6 +110,10 @@ H100_BF16_TENSOR_FLOPS = 989e12  # dense tensor cores
 #   K1 bwd: dx rounds where the plain version rounds: fp32 allclose(1e-6),
 #   bf16 max|err| <= 2^-7 * max|ref|; dg1/db1/dg2/db2 add H*W products in
 #   fp32 in another order: fp32 allclose(1e-4), bf16 <= 2^-6 * max|ref|.
+#   K3 chains two convs, each summed in another order than cuDNN: fp32
+#   allclose(2e-4, 2e-4); bf16 rounds h1 and h2 to bf16, so each conv may
+#   flip one ulp: max|err| <= 2^-5 * max|ref|. Its backward (fp32) against
+#   the plain composition's autograd: max|err| <= 1e-3 * max|ref| per input.
 #   The served image (phase 3, fp32) passes 14 DFBlocks, each reordered:
 #   allclose(1e-3, 1e-3).
 #   Train (phase 4, fp32), kernels against the plain versions from one
@@ -325,6 +350,132 @@ def check_kernels(gcfg):
                 s["bound_ms"] += n_step * bb_ms
                 s["max_abs_err"] = max(s["max_abs_err"], err_dx, err_v)
     return summary, len(k2_shapes), len(k1_path)
+
+
+def resblock_shapes(gcfg):
+    """(H, Cin, Cout) of every residual block of one generator forward."""
+    return [(gcfg.base_size * 2 ** i, cin, cout)
+            for i, (cin, cout) in enumerate(gcfg.block_channels)]
+
+
+def check_resblock(gcfg):
+    """Phase 2, K3: `fused_resblock_g` at every residual-block shape of the
+    generator, batch 8, fp32 (TF32 off) and bf16, against its plain
+    version; its time beside the plain version's and the composition's
+    (the port's current way to compute the block); its fp32 backward
+    against the plain composition's autograd. Returns the summary entry
+    and the number of K3 launches the phase made."""
+    import torch
+
+    from gan_codes_tpu_torch.ops.kernels import fused_resblock as fr
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    B = KERNEL_BATCH
+    before = fr.fused_resblock_g.launches
+    s = dict(route="cuda", source="gan_codes_tpu_torch/csrc/fused_resblock.cu",
+             replaces="gan_codes_tpu/ops/pallas/fused_resblock.py:157",
+             ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
+             composition_ms=0.0, max_abs_err=0.0, bound_by="operations",
+             bwd_ms=0.0, plain_bwd_ms=0.0, bf16_ms=0.0,
+             bf16_composition_ms=0.0, bf16_bound_ms=0.0,
+             per="7-block set (one 256px generator forward's blocks)",
+             path_shapes=len(gcfg.block_channels))
+
+    def rand(*shape, dtype, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen) * scale
+                ).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        fp32 = dtype == torch.float32
+        name = "fp32" if fp32 else "bf16"
+        esize = 4 if fp32 else 2
+        peak = H100_FP32_FLOPS if fp32 else H100_BF16_TENSOR_FLOPS
+        for hw, cin, cout in resblock_shapes(gcfg):
+            sc = cin != cout
+            args = ([rand(B, hw, hw, cin, dtype=dtype)]
+                    + [rand(B, cin, dtype=dtype, scale=0.5)
+                       for _ in range(4)]
+                    + [rand(3, 3, cin, cout, dtype=dtype,
+                            scale=(9 * cin) ** -0.5),
+                       rand(cout, dtype=dtype, scale=0.1)]
+                    + [rand(B, cout, dtype=dtype, scale=0.5)
+                       for _ in range(4)]
+                    + [rand(3, 3, cout, cout, dtype=dtype,
+                            scale=(9 * cout) ** -0.5),
+                       rand(cout, dtype=dtype, scale=0.1),
+                       torch.full((1,), 0.7, device=dev, dtype=dtype)]
+                    + ([rand(1, 1, cin, cout, dtype=dtype, scale=cin ** -0.5),
+                        rand(cout, dtype=dtype, scale=0.1)] if sc
+                       else [None, None]))
+            out = fr.fused_resblock_g(*args)
+            ref = fr.reference_resblock_g(*args)
+            torch.cuda.synchronize()
+            err = _held(f"K3 {name} {(B, hw, hw, cin, cout)}", out, ref,
+                        fp32, 2e-4, -5)
+            top = ref.float().abs().max().item()
+            iters = 5 if hw >= 128 else 10
+            with torch.no_grad():
+                ms = cuda_ms(lambda: fr.fused_resblock_g(*args), iters)
+                plain = cuda_ms(lambda: fr.reference_resblock_g(*args),
+                                iters)
+                comp = cuda_ms(lambda: fr._composition(*args), iters)
+            n_bytes = sum(a.numel() for a in args if a is not None) * esize \
+                + B * hw * hw * cout * esize
+            flops = 2.0 * B * hw * hw * cout * (9 * cin + 9 * cout
+                                                + (cin if sc else 0))
+            b_ms, b_by = bound(n_bytes, flops, peak)
+            log(f"[kernels] K3 {name} x[{B},{hw},{hw},{cin}] -> {cout}"
+                f"{' +1x1' if sc else ''}: max_abs_err {err:.3g} "
+                f"max_rel_err {err / top:.3g} | kernel_ms {ms:.4f} plain_ms "
+                f"{plain:.4f} composition_ms {comp:.4f} bound_ms "
+                f"{b_ms:.4f} ({b_by}) | {flops / ms / 1e9:.1f} TFLOP/s")
+            if not fp32:
+                s["bf16_ms"] += ms
+                s["bf16_composition_ms"] += comp
+                s["bf16_bound_ms"] += b_ms
+                continue
+            s["ms"] += ms
+            s["plain_ms"] += plain
+            s["composition_ms"] += comp
+            s["bound_ms"] += b_ms
+            s["max_abs_err"] = max(s["max_abs_err"], err)
+            # backward: the Function (K2 or K1 + cuDNN, K1 bwd) against the
+            # plain composition's autograd, every input's gradient
+            ins = [None if a is None else a.detach().requires_grad_()
+                   for a in args]
+            leaves = [a for a in ins if a is not None]
+            dy = rand(B, hw, hw, cout, dtype=dtype)
+            out = fr.fused_resblock_g(*ins)
+            ref = fr.reference_resblock_g(*ins)
+            got = torch.autograd.grad(out, leaves, dy, retain_graph=True)
+            want = torch.autograd.grad(ref, leaves, dy, retain_graph=True)
+            worst = 0.0
+            for i, (g, w) in enumerate(zip(got, want)):
+                e = (g - w).abs().max().item()
+                t = w.abs().max().item()
+                worst = max(worst, e / max(t, 1e-30))
+                if e > 1e-3 * t:
+                    raise AssertionError(f"K3 backward input {i} at "
+                                         f"{(B, hw, hw, cin, cout)}: max|err|"
+                                         f" {e} max|ref| {t}")
+            bwd = cuda_ms(lambda: torch.autograd.grad(
+                out, leaves, dy, retain_graph=True), iters)
+            plain_bwd = cuda_ms(lambda: torch.autograd.grad(
+                ref, leaves, dy, retain_graph=True), iters)
+            s["bwd_ms"] += bwd
+            s["plain_bwd_ms"] += plain_bwd
+            log(f"[kernels] K3 backward fp32 x[{B},{hw},{hw},{cin}] -> "
+                f"{cout}: worst per-input max|err|/max|ref| {worst:.3g}; "
+                f"Function bwd_ms {bwd:.4f} plain autograd bwd_ms "
+                f"{plain_bwd:.4f}")
+            del ins, leaves, out, ref, got, want
+    log(f"[kernels] K3 per 7-block set: fp32 kernel_ms {s['ms']:.3f} "
+        f"plain_ms {s['plain_ms']:.3f} composition_ms "
+        f"{s['composition_ms']:.3f} bound_ms {s['bound_ms']:.3f}; bf16 "
+        f"kernel_ms {s['bf16_ms']:.3f} composition_ms "
+        f"{s['bf16_composition_ms']:.3f} bound_ms {s['bf16_bound_ms']:.4f}")
+    return s, fr.fused_resblock_g.launches - before
 
 
 def write_weights(root: str) -> None:
@@ -831,6 +982,228 @@ def _phase_times(state, te, images, captions, cap_lens, noise, loss_cfg):
         ("phase2_ma_gp", phase2), ("phase3_d", phase3_d))}
 
 
+def _snapshot(obj):
+    """A CPU copy of a nested dict / list of tensors and plain values."""
+    import torch
+
+    if isinstance(obj, dict):
+        return {k: _snapshot(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_snapshot(v) for v in obj)
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    return obj
+
+
+def _bit_equal(a, b, path: str = "state") -> int:
+    """Raise unless a and b (from `_snapshot`) are equal bit for bit;
+    returns the number of tensors compared."""
+    import torch
+
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{path}: keys differ")
+        return sum(_bit_equal(a[k], b[k], f"{path}.{k}") for k in a)
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{path}: lengths differ")
+        return sum(_bit_equal(x, y, f"{path}[{i}]")
+                   for i, (x, y) in enumerate(zip(a, b)))
+    if isinstance(a, torch.Tensor):
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"{path}: tensors differ")
+        return 1
+    if a != b:
+        raise AssertionError(f"{path}: {a!r} != {b!r}")
+    return 0
+
+
+class _Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, text):
+        self.buf.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def train_entry_phase(root: str, bare_img_s: float):
+    """Phase 5. Returns (K2, K1, K1 bwd launches over the three
+    `train_entry.train` calls, train-entry numbers)."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    from PIL import Image
+
+    from gan_codes_tpu_torch import serve as serve_mod
+    from gan_codes_tpu_torch import train_entry
+    from gan_codes_tpu_torch.config import GANConfig
+    from gan_codes_tpu_torch.data.synthetic import make_synthetic_cub
+    from gan_codes_tpu_torch.models.text_encoder import RNNEncoder
+    from gan_codes_tpu_torch.ops.kernels import fused_modconv
+    from gan_codes_tpu_torch.train.checkpoint import state_to_dict
+    from gan_codes_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    data = os.path.join(root, "cub")
+    info = make_synthetic_cub(data, n_train=ENTRY_TRAIN, n_test=ENTRY_TEST,
+                              image_size=256, seed=SEED)
+    cfg = GANConfig.for_image_size(256, vocab_size=info["n_words"])
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        te = RNNEncoder(cfg.text_encoder)
+    te_path = os.path.join(root, "entry_text_encoder.pth")
+    torch.save(te.state_dict(), te_path)
+    log(f"[entry] synthetic CUB {ENTRY_TRAIN} + {ENTRY_TEST} images and a "
+        f"text encoder in {time.perf_counter() - t0:.2f}s")
+
+    class Recorded(Trainer):
+        """The Trainer, keeping each instance and a snapshot of its state
+        as the first epoch starts (after any restore)."""
+        made = []
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.at_start = None
+            Recorded.made.append(self)
+
+        def train_epoch(self, loader):
+            if self.at_start is None:
+                self.at_start = _snapshot(state_to_dict(self.state))
+            return super().train_epoch(loader)
+
+    k2, k1, k1b = _counters()
+    steps_per_epoch = ENTRY_TRAIN // TRAIN_BATCH
+
+    def run(name: str, epochs: int):
+        kw = dict(image_size=256, batch_size=TRAIN_BATCH, num_epochs=epochs,
+                  seed=SEED, n_channels=32, compute_dtype="float32",
+                  device="cuda")
+        tee = _Tee(sys.stdout)
+        k2.launches = k1.launches = k1b.launches = 0  # main path starts
+        t = time.perf_counter()
+        with mock.patch.object(train_entry, "Trainer", Recorded), \
+                contextlib.redirect_stdout(tee):
+            hist = train_entry.train(data, te_path,
+                                     os.path.join(root, f"{name}_images"),
+                                     os.path.join(root, f"{name}_weights"),
+                                     **kw)
+        wall = time.perf_counter() - t
+        counts = (k2.launches, k1.launches, k1b.launches)  # ends here
+        return hist, counts, wall, tee.buf.getvalue(), Recorded.made[-1]
+
+    hist_a, counts_a, wall_a, _, tr_a = run("a", 2)
+    hist_b1, counts_b1, wall_b1, _, tr_b1 = run("b", 1)
+    saved_b = _snapshot(state_to_dict(tr_b1.state))
+    hist_b2, counts_b2, wall_b2, out_b2, tr_b2 = run("b", 2)
+
+    # counters: per step one K2 per DFBlock K2 takes, one K1 and one K1
+    # bwd per DFBlock (12, 14, 14 at 256px); per eval batch (one test
+    # batch each epoch) a generator forward (12 K2, 2 K1 at 256px)
+    shapes = dfblock_shapes(tr_a.cfg.generator)
+    n_k2 = sum(fused_modconv._supported(
+        torch.empty(3, 3, cin, cout, device="meta")) for _, cin, cout in shapes)
+    n_df = len(shapes)
+    totals = [0, 0, 0]
+    for counts, epochs in ((counts_a, 2), (counts_b1, 1), (counts_b2, 1)):
+        steps = epochs * steps_per_epoch
+        want = (n_k2 * (steps + epochs), n_df * steps + (n_df - n_k2) * epochs,
+                n_df * steps)
+        if counts != want:
+            raise AssertionError(f"train-entry launch counters {counts} != "
+                                 f"{want} ({steps} steps, {epochs} evals)")
+        totals = [t + c for t, c in zip(totals, counts)]
+    log(f"[entry] launches (K2, K1, K1 bwd): run A {counts_a}, run B "
+        f"{counts_b1} then {counts_b2}")
+
+    if "Resuming from epoch 1" not in out_b2:
+        raise AssertionError("run B's second call did not resume from "
+                             "epoch 1")
+    n_tensors = _bit_equal(tr_b2.at_start, saved_b)
+    log(f"[entry] run B restored its saved state bit for bit: step "
+        f"{saved_b['step']}, {n_tensors} tensors (G, D, EMA, both Adam "
+        f"states, RNG)")
+    gaps = {}
+    for key in ("g_losses", "d_losses", "d_gp_losses", "txtimg_losses"):
+        a, b = hist_a[key][1], hist_b2[key][1]
+        gaps[key] = abs(a - b) / max(abs(a), 1e-30)
+        if not np.isclose(b, a, rtol=1e-3, atol=0.0):
+            raise AssertionError(f"epoch 2 {key}: run A {a}, resumed run B "
+                                 f"{b}")
+        if not (np.isfinite(a) and np.isfinite(b)):
+            raise AssertionError(f"epoch 2 {key} not finite: {a} {b}")
+    log(f"[entry] epoch 2, resumed B against uninterrupted A: relative gaps "
+        f"{json.dumps(gaps)}; A {json.dumps({k: v[1] for k, v in hist_a.items()})}")
+    for name in ("a", "b"):
+        wdir = os.path.join(root, f"{name}_weights")
+        for f in ("histories.json", "metrics_log.jsonl", "config.json",
+                  "checkpoint", "gen_1.pth", "gen_ema_1.pth"):
+            if not os.path.exists(os.path.join(wdir, f)):
+                raise AssertionError(f"run {name}: {f} missing")
+        with open(os.path.join(wdir, "metrics_log.jsonl")) as f:
+            epochs = [json.loads(line)["epoch"] for line in f]
+        if epochs != [0, 1]:
+            raise AssertionError(f"run {name}: metrics rows {epochs}")
+        grid = os.path.join(root, f"{name}_images", "fake_sample_epoch_1.png")
+        if not os.path.exists(grid):
+            raise AssertionError(f"run {name}: sample grid missing")
+    grid_px = Image.open(grid).size
+    log(f"[entry] files present in both runs; grid {grid_px} px; figure "
+        f"{'written' if os.path.exists(os.path.join(root, 'b_images', 'samples_with_text_epoch_1.jpg')) else 'not written'}")
+
+    # the trained gen_1.pth serves one request over HTTP on the card
+    sampler, epoch = serve_mod.build_sampler(
+        data, te_path, os.path.join(root, "b_weights"), batch_size=4)
+    server = serve_mod.make_http_server(sampler, port=0, epoch=epoch)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        code, body = post(f"http://127.0.0.1:{server.server_address[1]}",
+                          {"prompts": ["this bird has a red crown"]})
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
+    img = np.asarray(Image.open(io.BytesIO(base64.b64decode(
+        body["images"][0]))))
+    size = tr_a.cfg.generator.image_size
+    if code != 200 or epoch != 1 or img.shape != (size, size, 3):
+        raise AssertionError(f"serving gen_{epoch}.pth: {code} {img.shape}")
+    log(f"[entry] build_sampler served gen_{epoch}.pth: one {size}px PNG, "
+        f"pixel std {img.std():.2f}")
+
+    numbers = {}
+    for name, tr, wall, epochs in (("A", tr_a, wall_a, 2),
+                                   ("B2", tr_b2, wall_b2, 1)):
+        steps = epochs * steps_per_epoch
+        step_s = tr.timers["step"].total()
+        h2d_s = tr.timers["h2d"].total()
+        hs = tr.host_seconds
+        numbers[name] = {
+            "steps": steps, "call_s": wall,
+            "img_per_s_train_epoch": steps * TRAIN_BATCH / hs["train"],
+            "img_per_s_call": steps * TRAIN_BATCH / wall,
+            "step_device_ms": [t * 1e3 for t in tr.timers["step"].times],
+            "h2d_device_ms_total": h2d_s * 1e3,
+            "host_s": dict(hs), "step_device_s_total": step_s}
+        log(f"[entry] run {name}: {steps} steps, {epochs} epochs; trainer "
+            f"{numbers[name]['img_per_s_train_epoch']:.2f} img/s over "
+            f"train_epoch ({hs['train']:.3f}s: data wait "
+            f"{hs['data_wait']:.3f}s, H2D copies {h2d_s * 1e3:.2f} ms "
+            f"device, steps {step_s:.3f}s device {['%.1f' % (t * 1e3) for t in tr.timers['step'].times]} ms); "
+            f"eval + sample dumps {hs['eval']:.3f}s, checkpoints "
+            f"{hs['checkpoint']:.3f}s; whole call {wall:.2f}s = "
+            f"{numbers[name]['img_per_s_call']:.2f} img/s; bare step "
+            f"(phase 4) {bare_img_s:.2f} img/s")
+    return tuple(totals), numbers
+
+
 def main() -> int:
     import torch
 
@@ -855,6 +1228,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     summary, k2_n, k1_n = check_kernels(GeneratorConfig())
+    summary["fused_resblock_g"], k3_checks = check_resblock(GeneratorConfig())
     log(f"[kernels] phase took {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
@@ -870,22 +1244,41 @@ def main() -> int:
     (t_k2, t_k1, t_k1b), train_numbers = train()
     log("[train] " + json.dumps(train_numbers))
     log(f"[train] phase took {time.perf_counter() - t0:.1f}s")
-    launches = {"fused_modconv3x3": {"serve": k2, "train": t_k2},
-                "fused_double_affine_leaky": {"serve": k1, "train": t_k1},
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR,
+                                     prefix="entry_") as root:
+        (e_k2, e_k1, e_k1b), entry_numbers = train_entry_phase(
+            root, min(train_numbers["img_per_s_float32"]))
+    log("[entry] " + json.dumps(entry_numbers))
+    log(f"[entry] phase took {time.perf_counter() - t0:.1f}s")
+    # launches on the main paths; K3 is on none (as in the JAX package),
+    # so its only launches are the kernel checks', which do not count
+    launches = {"fused_modconv3x3": {"serve": k2, "train": t_k2,
+                                     "train_entry": e_k2},
+                "fused_double_affine_leaky": {"serve": k1, "train": t_k1,
+                                              "train_entry": e_k1},
                 "fused_double_affine_leaky_bwd": {"serve": 0,
-                                                  "train": t_k1b}}
+                                                  "train": t_k1b,
+                                                  "train_entry": e_k1b},
+                "fused_resblock_g": {"serve": 0, "train": 0,
+                                     "train_entry": 0}}
     kernels = []
     for name, s in summary.items():
+        by_path = dict(launches[name])
         entry = {"name": name, "route": s["route"], "source": s["source"],
                  "replaces": s["replaces"],
-                 "launches": sum(launches[name].values()),
+                 "launches": sum(by_path.values()),
                  "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                  "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                  "bound_by": s["bound_by"], "library_ms": s["library_ms"],
-                 "launches_by_path": launches[name], "dtype": "float32",
+                 "launches_by_path": by_path, "dtype": "float32",
                  "batch": KERNEL_BATCH, "ms_per": s["per"],
                  "shapes_per_call": s["path_shapes"]}
-        for extra in ("bwd_ms", "plain_bwd_ms", "ms_per_train_step"):
+        if name == "fused_resblock_g":
+            by_path["kernel_checks"] = k3_checks
+        for extra in ("bwd_ms", "plain_bwd_ms", "ms_per_train_step",
+                      "composition_ms", "bf16_ms", "bf16_composition_ms",
+                      "bf16_bound_ms"):
             if extra in s:
                 entry[extra] = s[extra]
         kernels.append(entry)

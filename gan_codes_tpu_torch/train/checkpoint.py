@@ -1,0 +1,224 @@
+"""Checkpoint / resume with `torch.save` (the port of
+`gan_codes_tpu/train/checkpoint.py`).
+
+The reference's checkpoint contents (`src/deep_fusion_gan/model.py:298-327`)
+plus what the JAX package adds so that resume is bit-exact: the step, G, D,
+the EMA G, both Adam states and the state of `TrainState.rng`. The layout
+in the checkpoint directory follows the JAX package's:
+
+  * `checkpoint`, the latest full training state (one `torch.save` file);
+  * `checkpoint_epoch_{N}`, a copy every `numbered_every` epochs;
+  * `gen_{N}.pth`, the generator's state_dict in the reference's format
+    (`serve.build_sampler` serves it unchanged), and `gen_ema_{N}.pth`,
+    the EMA generator's (the JAX `gen_N` tree holds both);
+  * `histories.json`, the six metric histories and the last epoch: the
+    resume commit point, written last;
+  * `config.json`, the run's `GANConfig` (the JAX package reads it too).
+
+Every file is written to a temporary name and renamed into place. Loading
+uses `torch.load(weights_only=True)`. Data-parallel runs (a broadcast of
+the resume decision from rank 0) are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from ..utils.jsonio import restore_nonfinite, sanitize_nonfinite
+from .state import TrainState
+
+HISTORY_KEYS = ("g_losses", "d_losses", "d_gp_losses", "is_scores",
+                "fid_scores", "txtimg_losses")
+
+# Config fields that may legitimately differ between the run that wrote a
+# checkpoint and the run resuming from it (extending training, moving the
+# dataset, changing save cadence). Everything else changing silently would
+# either fail to load or, worse, train with different semantics, so restore
+# fails loudly on it. The same set as the JAX package's.
+CONFIG_RESUME_MUTABLE = frozenset({
+    "train.num_epochs",
+    "train.checkpoint_every_epochs",
+    "train.numbered_checkpoint_every",
+    "train.eval_use_ema",
+    "train.eval_max_batches",
+    "train.eval_every_epochs",
+    "train.eval_sqrtm",
+    "data.data_dir",
+    # Pure-performance knobs of the JAX package's TPU compile (exact math),
+    # kept in the config and ignored by the port.
+    "train.xla_scoped_vmem_kib",
+    "generator.remat_blocks",
+    "generator.lane_pad",
+    "generator.lane_pad_min_ch",
+    "discriminator.lane_pad",
+    "discriminator.lane_pad_min_ch",
+    "generator.image_pad",
+    "train.image_pad",
+    "train.steps_per_dispatch",
+    # Logging cadence only: what gets written to the metrics JSONL, not
+    # what gets computed.
+    "train.log_every_steps",
+    "train.device_prefetch",
+})
+
+
+def empty_histories() -> Dict[str, List[float]]:
+    return {k: [] for k in HISTORY_KEYS}
+
+
+def _flatten(d: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in d.items():
+        path = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def config_mismatches(saved: Dict[str, Any], current: Dict[str, Any]
+                      ) -> List[str]:
+    """Human-readable list of semantic config differences (allowlisted
+    resume-mutable fields excluded)."""
+    flat_saved, flat_cur = _flatten(saved), _flatten(current)
+    lines = []
+    for path in sorted(set(flat_saved) | set(flat_cur)):
+        if path in CONFIG_RESUME_MUTABLE:
+            continue
+        a, b = flat_saved.get(path, "<absent>"), flat_cur.get(path, "<absent>")
+        if a != b:
+            lines.append(f"  {path}: checkpoint={a!r} current={b!r}")
+    return lines
+
+
+def state_to_dict(state: TrainState) -> Dict[str, Any]:
+    """Everything `TrainState` holds, as one dict of tensors and plain
+    values (what `checkpoint` files contain)."""
+    return {"step": int(state.step),
+            "generator": state.generator.state_dict(),
+            "discriminator": state.discriminator.state_dict(),
+            "g_ema": state.g_ema.state_dict(),
+            "g_opt": state.g_opt.adam.state_dict(),
+            "d_opt": state.d_opt.adam.state_dict(),
+            "rng": state.rng.get_state()}
+
+
+def load_state_dict(state: TrainState, blob: Dict[str, Any]) -> None:
+    """Load a `state_to_dict` dict into `state`, in place."""
+    state.generator.load_state_dict(blob["generator"])
+    state.discriminator.load_state_dict(blob["discriminator"])
+    state.g_ema.load_state_dict(blob["g_ema"])
+    state.g_opt.adam.load_state_dict(blob["g_opt"])
+    state.d_opt.adam.load_state_dict(blob["d_opt"])
+    state.rng.set_state(blob["rng"].cpu())
+    state.step = int(blob["step"])
+
+
+class CheckpointManager:
+    """Latest + numbered checkpoints + generator-only weights."""
+
+    def __init__(self, directory: str, numbered_every: int = 10):
+        self.directory = os.path.abspath(directory)
+        self.numbered_every = numbered_every
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _path(self, name: str) -> str:
+        return os.path.join(self.directory, name)
+
+    def _save(self, name: str, obj: Any) -> None:
+        """torch.save to a temporary name, then rename into place: a crash
+        mid-write leaves the previous file."""
+        tmp = self._path(name + ".tmp")
+        torch.save(obj, tmp)
+        os.replace(tmp, self._path(name))
+
+    # -- full training checkpoints ------------------------------------------
+
+    def save(self, epoch: int, state: TrainState,
+             histories: Dict[str, List[float]],
+             config: Any = None) -> None:
+        blob = state_to_dict(state)
+        self._save("checkpoint", blob)
+        if (epoch + 1) % self.numbered_every == 0:
+            self._save(f"checkpoint_epoch_{epoch}", blob)
+        self.save_generator(epoch, state)
+        # histories.json is the resume commit point (it names the epoch
+        # restore() returns), so it lands only after the state files are
+        # complete: a crash before it leaves the previous epoch's
+        # histories and resume replays the epoch (never skips one).
+        self._write_json("histories.json", {"epoch": epoch, **histories})
+        if config is not None:
+            self.save_config(config)
+
+    def save_config(self, config: Any) -> None:
+        """Persist the run's GANConfig as config.json (atomic write) so
+        inference entry points can rebuild the exact model later."""
+        self._write_json("config.json", dataclasses.asdict(config))
+
+    def save_generator(self, epoch: int, state: TrainState) -> None:
+        """Generator-only weights for inference (`model.py:321-327`):
+        `gen_{epoch}.pth` in the reference's state_dict format and
+        `gen_ema_{epoch}.pth`."""
+        self._save(f"gen_{epoch}.pth", state.generator.state_dict())
+        self._save(f"gen_ema_{epoch}.pth", state.g_ema.state_dict())
+
+    def _write_json(self, name: str, obj: Any) -> None:
+        """Atomic JSON write; non-finite floats (the FID inf sentinel) are
+        stringified, since bare `Infinity` tokens are invalid JSON."""
+        tmp = self._path(name + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(sanitize_nonfinite(obj), f, allow_nan=False)
+        os.replace(tmp, self._path(name))
+
+    def has_checkpoint(self) -> bool:
+        return os.path.exists(self._path("checkpoint")) and \
+            os.path.exists(self._path("histories.json"))
+
+    def load_config(self):
+        """The `GANConfig` this checkpoint was trained with, or None when
+        the directory has no config.json."""
+        path = self._path("config.json")
+        if not os.path.exists(path):
+            return None
+        from ..config import GANConfig
+
+        with open(path) as f:
+            return GANConfig.from_dict(json.load(f))
+
+    def verify_config(self, config: Any) -> None:
+        """Fail loudly if `config` differs semantically from the config the
+        checkpoint was written with (resume-mutable fields excluded). No-op
+        when the directory has no config.json."""
+        if config is None:
+            return
+        saved = self.load_config()
+        if saved is None:
+            return
+        # Round-trip through GANConfig so fields added after the checkpoint
+        # was written take their default instead of reading as "<absent>".
+        lines = config_mismatches(dataclasses.asdict(saved),
+                                  dataclasses.asdict(config))
+        if lines:
+            raise ValueError(
+                "Config mismatch between the checkpoint in "
+                f"{self.directory} and the current run:\n" + "\n".join(lines)
+                + "\nRebuild the run with the checkpoint's config (or use a "
+                "fresh checkpoint directory).")
+
+    def restore(self, state: TrainState
+                ) -> Tuple[TrainState, int, Dict[str, List[float]]]:
+        """Load the latest checkpoint into `state` (in place) and return
+        (state, last completed epoch, histories)."""
+        blob = torch.load(self._path("checkpoint"), map_location="cpu",
+                          weights_only=True)
+        load_state_dict(state, blob)
+        with open(self._path("histories.json")) as f:
+            hist = restore_nonfinite(json.load(f))
+        epoch = int(hist.pop("epoch"))
+        histories = {k: list(hist.get(k, [])) for k in HISTORY_KEYS}
+        return state, epoch, histories

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
-K1 forward and backward, K2 forward, and the gradients of both kernels'
-autograd Functions against the plain versions' autograd.
+K1 forward and backward, K2 forward, K3 forward, and the gradients of the
+kernels' autograd Functions against the plain versions' autograd.
 
 Every test here is marked `cuda` and skips without a CUDA device. On a
 machine with one (and nvcc), with or without JAX installed:
@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from gan_codes_tpu_torch.ops.kernels import fused_affine, fused_modconv
+from gan_codes_tpu_torch.ops.kernels import (fused_affine, fused_modconv,
+                                             fused_resblock)
 
 
 def _k1_inputs(shape, seed=0):
@@ -35,6 +36,25 @@ def _k2_inputs(b, h, w, cin, cout, seed=0):
     wt = rng.uniform(-bound, bound, (3, 3, cin, cout)).astype(np.float32)
     bias = rng.uniform(-bound, bound, (cout,)).astype(np.float32)
     return [x] + vecs + [wt, bias]
+
+
+def _k3_inputs(b, h, w, cin, cout, shortcut, seed=0):
+    """The 16 inputs of K3 (ws, cs None without a shortcut), weights at
+    the scale of torch's conv init."""
+    rng = np.random.default_rng(seed)
+
+    def n(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    x = n(b, h, w, cin)
+    vin = [n(b, cin, scale=0.5) for _ in range(4)]
+    vout = [n(b, cout, scale=0.5) for _ in range(4)]
+    w1, c1 = n(3, 3, cin, cout, scale=(9 * cin) ** -0.5), n(cout, scale=0.1)
+    w2, c2 = n(3, 3, cout, cout, scale=(9 * cout) ** -0.5), n(cout,
+                                                               scale=0.1)
+    ws = n(1, 1, cin, cout, scale=cin ** -0.5) if shortcut else None
+    cs = n(cout, scale=0.1) if shortcut else None
+    return [x, *vin, w1, c1, *vout, w2, c2, np.float32([0.7]), ws, cs]
 
 
 @pytest.fixture
@@ -163,3 +183,79 @@ class TestKernelsOnCard:
                 for a in _k2_inputs(1, 4, 4, 8, 32)]
         with pytest.raises(ValueError, match="Cout"):
             fused_modconv.fused_modconv3x3(*args)
+
+
+@pytest.mark.cuda
+class TestResBlockOnCard:
+    """K3 against its plain version, and its backward against the plain
+    composition's autograd, on the card."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("dims", [(2, 4, 4, 256, 256, False),
+                                      (2, 19, 21, 64, 32, True),
+                                      (1, 24, 40, 36, 64, True)])
+    def test_k3(self, cuda, dtype, dims):
+        """A 4x4 map inside one tile (identity shortcut), ragged tiles with
+        the Cout-32 chunking, and a Cin (36) that is not a multiple of the
+        8-channel chunk: fp32 (TF32 off) allclose 2e-4; bf16 max|err| <= 2^-5 max|ref| (two
+        chained bf16 convs, each may flip one ulp)."""
+        args = [None if a is None else torch.from_numpy(a).to(cuda, dtype)
+                for a in _k3_inputs(*dims)]
+        before = fused_resblock.fused_resblock_g.launches
+        got = fused_resblock.fused_resblock_g(*args)
+        want = fused_resblock.reference_resblock_g(*args)
+        torch.cuda.synchronize()
+        assert fused_resblock.fused_resblock_g.launches == before + 1
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+        else:
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= 2.0 ** -5 * want.float().abs().max().item()
+
+    @pytest.mark.parametrize("image_size", [32, 64, 128])
+    def test_k3_takes_the_short_ladders(self, cuda, image_size):
+        """Every block of the 32/64/128px generators (n_channels 32),
+        batch 2, fp32: allclose 2e-4."""
+        from gan_codes_tpu_torch.config import GeneratorConfig
+        gcfg = GeneratorConfig(image_size=image_size)
+        for i, (cin, cout) in enumerate(gcfg.block_channels):
+            hw = gcfg.base_size * 2 ** i
+            args = [None if a is None else torch.from_numpy(a).to(cuda)
+                    for a in _k3_inputs(2, hw, hw, cin, cout, cin != cout,
+                                        seed=i)]
+            got = fused_resblock.fused_resblock_g(*args)
+            want = fused_resblock.reference_resblock_g(*args)
+            torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+    @pytest.mark.parametrize("shortcut", [False, True])
+    def test_k3_backward(self, cuda, shortcut):
+        """All 16 (or 14) input gradients through the Function (K2, or K1
+        and cuDNN, K1 bwd) against the plain composition's autograd, fp32:
+        max|err| <= 1e-3 max|ref| per input."""
+        cin, cout = (64, 64) if not shortcut else (64, 32)
+        arrays = _k3_inputs(2, 16, 16, cin, cout, shortcut, seed=1)
+        ins = [None if a is None else
+               torch.from_numpy(a).to(cuda).requires_grad_()
+               for a in arrays]
+        ref_ins = [None if t is None else t.detach().clone().requires_grad_()
+                   for t in ins]
+        out = fused_resblock.fused_resblock_g(*ins)
+        assert out.grad_fn is not None
+        r = torch.randn(out.shape, device=cuda)
+        k1_bwd = fused_affine.fused_double_affine_leaky_bwd.launches
+        (out * r).sum().backward()
+        (fused_resblock.reference_resblock_g(*ref_ins) * r).sum().backward()
+        torch.cuda.synchronize()
+        assert fused_affine.fused_double_affine_leaky_bwd.launches \
+            == k1_bwd + 2
+        for t, w in zip(ins, ref_ins):
+            if t is None:
+                continue
+            err = (t.grad - w.grad).abs().max().item()
+            assert err <= 1e-3 * w.grad.abs().max().item()
+
+    def test_k3_refuses_unsupported_cout(self, cuda):
+        args = [None if a is None else torch.from_numpy(a).to(cuda)
+                for a in _k3_inputs(1, 4, 4, 16, 48, True)]
+        with pytest.raises(ValueError, match="Cout"):
+            fused_resblock.fused_resblock_g(*args)

@@ -29,12 +29,13 @@ from gan_codes_tpu.models.text_encoder import init_text_encoder
 from gan_codes_tpu.serve import Sampler as JaxSampler
 from gan_codes_tpu.utils import image_io as jimage_io
 from gan_codes_tpu_torch import config as pcfg
-from gan_codes_tpu_torch import generate, serve
+from gan_codes_tpu_torch import generate, serve, train_entry
 from gan_codes_tpu_torch.models.generator import Generator
 from gan_codes_tpu_torch.models.text_encoder import RNNEncoder
 from gan_codes_tpu_torch.models.torch_import import (
     generator_state_dict_from_jax, text_encoder_state_dict_from_jax)
 from gan_codes_tpu_torch.train.state import create_train_state
+from gan_codes_tpu_torch.train.trainer import Trainer
 from gan_codes_tpu_torch.utils import image_io
 from gan_codes_tpu_torch.utils.seeding import fix_seed
 
@@ -340,7 +341,9 @@ class TestServeMain:
 class TestPortPromises:
     def test_port_imports_no_jax(self):
         """Every module of the package, and chip_smoke.py, imported in a
-        fresh interpreter: neither jax nor the JAX package is loaded."""
+        fresh interpreter: neither jax nor the JAX package is loaded, nor
+        matplotlib (imported only inside the one image helper that needs
+        it, so the package imports where matplotlib is not installed)."""
         code = (
             "import importlib, pkgutil, sys\n"
             "import gan_codes_tpu_torch as pkg\n"
@@ -349,7 +352,7 @@ class TestPortPromises:
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'gan_codes_tpu' or "
-            "m.startswith('gan_codes_tpu.')]\n"
+            "m.startswith('gan_codes_tpu.') or m == 'matplotlib']\n"
             "n = sum(m.startswith('gan_codes_tpu_torch') for m in sys.modules)\n"
             "print(n, bad)\n"
             "sys.exit(1 if bad else 0)\n")
@@ -376,6 +379,13 @@ class TestPortPromises:
             lambda: serve._cli(["--data", args[0], "--text-encoder", args[1],
                                 "--weights", args[2], "--http", "0"]),
             lambda: create_train_state(cfg, seed=0),
+            lambda: Trainer(cfg, te, str(tmp_path / "o"),
+                            str(tmp_path / "o")),
+            lambda: train_entry.train(args[0], args[1], str(tmp_path / "o"),
+                                      str(tmp_path / "o")),
+            lambda: train_entry.main(["--data", args[0], "--images",
+                                      str(tmp_path / "o"), "--weights",
+                                      str(tmp_path / "o")]),
         ]
         for call in calls:
             with pytest.raises(RuntimeError, match="device='cpu'"):
