@@ -11,11 +11,13 @@ Phases (any failed check raises, so the run exits non-zero):
    one nvcc call for sm_90a into one library, prints the build seconds and
    the card's name and power limit.
 2. Kernels: calls each kernel's wrapper on the card at the shapes the main
-   paths give it (batch 8): K2 at every DFBlock its `_supported` takes, K1
-   and K1 bwd at the input of every DFBlock of a train step (14 DFBlocks,
-   10 distinct shapes; the served forward runs K1 on the two K2 declines),
-   in float32 with TF32 off and in bfloat16, and holds each result against
-   the kernel's plain PyTorch version on the same inputs. Prints errors,
+   paths give it (batch 8): K2 at every DFBlock its `_supported` takes (all
+   14 of the 256px generator), K1 and K1 bwd at the input of every DFBlock
+   of a train step (14 DFBlocks, 10 distinct shapes; K2's backward
+   recomputes h with K1; the served forward runs K1 on the DFBlocks K2
+   declines, none at 256px), in float32 with TF32 off and in bfloat16, and
+   holds each result against the kernel's plain PyTorch version on the
+   same inputs, K2's also against a second call bit for bit. Prints errors,
    kernel / plain / library times (CUDA events) and the bound, and K2's
    backward (its autograd Function) against the plain composition's
    autograd backward. K3 (`fused_resblock_g`, on no model path) runs at
@@ -43,7 +45,7 @@ Phases (any failed check raises, so the run exits non-zero):
    seeded text encoder and a seeded batch of TRAIN_BATCH images in [-1, 1]
    and random captions, and runs `make_train_step`'s 3-phase step:
    TRAIN_STEPS steps in float32 (TF32 off) with the launch counters set to
-   0 just before and read just after (12 K2, 14 K1, 14 K1 bwd per step),
+   0 just before and read just after (14 K2, 14 K1, 14 K1 bwd per step),
    then in bfloat16; every metric must be finite. Prints train img/s over
    two windows of at least TRAIN_WINDOW_S seconds (CUDA events), the peak
    device memory, the device time of a step by kernel group
@@ -60,7 +62,7 @@ Phases (any failed check raises, so the run exits non-zero):
    Adam moments, step, RNG); B's second-epoch losses within rtol 1e-3 of
    A's (cuDNN is not deterministic run to run); the checkpoint files,
    one metrics row per epoch and the sample grid exist; the launch
-   counters rise by 12 K2, 14 K1 and 14 K1 bwd per step plus 12 K2 and 2
+   counters rise by 14 K2, 14 K1 and 14 K1 bwd per step plus 14 K2 and 0
    K1 per eval batch; `build_sampler` serves B's `gen_1.pth` over HTTP.
    Prints the trainer's img/s with the device time of its steps and
    copies and the host's data wait, eval and checkpoint seconds, beside
@@ -99,14 +101,18 @@ ENTRY_TRAIN, ENTRY_TEST = 48, 24  # synthetic CUB images for the train entry
 H100_HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # CUDA cores, non-tensor
 H100_BF16_TENSOR_FLOPS = 989e12  # dense tensor cores
+H100_TF32_TENSOR_FLOPS = 495e12  # dense tensor cores; K2's fp32 runs
+#                                  3xTF32, three TF32 products per product
 # tolerances of the kernel checks (phase 2), each against the plain version
 # on the same inputs:
 #   K1 only rounds where the plain version rounds (no reduction): fp32
 #   allclose(1e-6, 1e-6); bf16 max|err| <= 2^-7 * max|ref| (two ulps).
-#   K2 sums 9*Cin products in another order than cuDNN: fp32
-#   allclose(1e-4, 1e-4) with TF32 off; bf16 rounds the sum to bf16 before
-#   the bias add, as the plain version does, so one-ulp flips of the
-#   rounded sum are expected: max|err| <= 2^-6 * max|ref|.
+#   K2 sums 9*Cin products in another order than cuDNN (fp32 as 3xTF32,
+#   about 2^-22 relative per product): fp32 allclose(1e-4, 1e-4) with TF32
+#   off; bf16 rounds the sum to bf16 before the bias add, as the plain
+#   version does, so one-ulp flips of the rounded sum are expected:
+#   max|err| <= 2^-6 * max|ref|. A second call equals the first bit for
+#   bit (split K adds its partial sums in a fixed order).
 #   K1 bwd: dx rounds where the plain version rounds: fp32 allclose(1e-6),
 #   bf16 max|err| <= 2^-7 * max|ref|; dg1/db1/dg2/db2 add H*W products in
 #   fp32 in another order: fp32 allclose(1e-4), bf16 <= 2^-6 * max|ref|.
@@ -202,7 +208,7 @@ def check_kernels(gcfg):
         torch.empty(3, 3, s[1], s[2], device="meta"))]
     k1_path = [(s[0], s[1]) for s in shapes if s not in k2_shapes]
     # a train step runs K1 (forward, and backward) at every DFBlock input:
-    # forward on the two K2 declines, and inside K2's backward on the rest
+    # forward on the K2 declines, and inside K2's backward on the rest
     k1_step = [(s[0], s[1]) for s in shapes]
     summary = {
         "fused_modconv3x3": dict(
@@ -210,14 +216,17 @@ def check_kernels(gcfg):
             replaces="gan_codes_tpu/ops/pallas/fused_modconv.py:118",
             ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
             max_abs_err=0.0, bound_by="operations", bwd_ms=0.0,
-            plain_bwd_ms=0.0, per="served forward",
+            plain_bwd_ms=0.0, bound_ms_fp32_cuda_cores=0.0,
+            drift_vs_float64=0.0, cudnn_drift_vs_float64=0.0, bf16_ms=0.0,
+            bf16_plain_ms=0.0, bf16_library_ms=0.0, bf16_bound_ms=0.0,
+            bf16_max_abs_err=0.0, per="served forward",
             path_shapes=len(k2_shapes)),
         "fused_double_affine_leaky": dict(
             route="cuda", source="gan_codes_tpu_torch/csrc/fused_affine.cu",
             replaces="gan_codes_tpu/ops/pallas/fused_affine.py:71",
             ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
-            max_abs_err=0.0, bound_by="bytes", ms_per_train_step=0.0,
-            per="served forward", path_shapes=len(k1_path)),
+            max_abs_err=0.0, bound_by="bytes", ms_per_served_forward=0.0,
+            per="train step", path_shapes=len(k1_step)),
         "fused_double_affine_leaky_bwd": dict(
             route="cuda", source="gan_codes_tpu_torch/csrc/fused_affine.cu",
             replaces="gan_codes_tpu/ops/pallas/fused_affine.py:133",
@@ -237,7 +246,6 @@ def check_kernels(gcfg):
         fp32 = dtype == torch.float32
         name = "fp32" if fp32 else "bf16"
         esize = 4 if fp32 else 2
-        peak = H100_FP32_FLOPS if fp32 else H100_BF16_TENSOR_FLOPS
         for (hw, cin, cout) in k2_shapes:
             x = rand(B, hw, hw, cin, dtype=dtype)
             g1, b1, g2, b2 = (rand(B, cin, dtype=dtype) for _ in range(4))
@@ -245,10 +253,14 @@ def check_kernels(gcfg):
             bias = rand(cout, dtype=dtype, scale=0.1)
             args = (x, g1, b1, g2, b2, w, bias)
             out = fused_modconv.fused_modconv3x3(*args)
+            again = fused_modconv.fused_modconv3x3(*args)
             ref = fused_modconv.reference_modconv3x3(*args)
             torch.cuda.synchronize()
             err = _held(f"K2 {name} {(B, hw, hw, cin, cout)}", out, ref,
                         fp32, 1e-4, -6)
+            if not torch.equal(out, again):
+                raise AssertionError(f"K2 {name} {(B, hw, hw, cin, cout)}: "
+                                     "a second call differs")
             top = ref.float().abs().max().item()
             iters = 20 if hw >= 64 else 50
             ms = cuda_ms(lambda: fused_modconv.fused_modconv3x3(*args), iters)
@@ -262,13 +274,39 @@ def check_kernels(gcfg):
             n_bytes = (x.numel() + 4 * B * cin + w.numel() + cout
                        + B * hw * hw * cout) * esize
             flops = 2.0 * B * hw * hw * 9 * cin * cout
-            b_ms, b_by = bound(n_bytes, flops, peak)
+            # fp32: 3xTF32 runs three TF32 tensor-core products a product
+            b_ms, b_by = (bound(n_bytes, 3 * flops, H100_TF32_TENSOR_FLOPS)
+                          if fp32 else
+                          bound(n_bytes, flops, H100_BF16_TENSOR_FLOPS))
             log(f"[kernels] K2 {name} x[{B},{hw},{hw},{cin}] -> {cout}: "
-                f"max_abs_err {err:.3g} max_rel_err {err / top:.3g} | "
-                f"kernel_ms {ms:.4f} plain_ms {plain:.4f} "
+                f"max_abs_err {err:.3g} max_rel_err {err / top:.3g}, second "
+                f"call bit-equal | kernel_ms {ms:.4f} plain_ms {plain:.4f} "
                 f"library_ms {lib:.4f} bound_ms {b_ms:.4f} ({b_by}) | "
                 f"{flops / ms / 1e9:.1f} TFLOP/s")
             if fp32:
+                # drift from the float64 plain version, K2 beside cuDNN's
+                # fp32 (max|err| / max|ref|; printed, not held)
+                ref64 = fused_modconv.reference_modconv3x3(
+                    *(a.double() for a in args))
+                top64 = ref64.abs().max().item()
+                drift = (out.double() - ref64).abs().max().item() / top64
+                drift_lib = (ref.double() - ref64).abs().max().item() / top64
+                del ref64
+                log(f"[kernels] K2 fp32 x[{B},{hw},{hw},{cin}] -> {cout}: "
+                    f"drift from float64 {drift:.3g} (cuDNN fp32 "
+                    f"{drift_lib:.3g})")
+                s = summary["fused_modconv3x3"]
+                s["drift_vs_float64"] = max(s["drift_vs_float64"], drift)
+                s["cudnn_drift_vs_float64"] = max(
+                    s["cudnn_drift_vs_float64"], drift_lib)
+            if not fp32:
+                s = summary["fused_modconv3x3"]
+                s["bf16_ms"] += ms
+                s["bf16_plain_ms"] += plain
+                s["bf16_library_ms"] += lib
+                s["bf16_bound_ms"] += b_ms
+                s["bf16_max_abs_err"] = max(s["bf16_max_abs_err"], err)
+            else:
                 # K2's backward (K1 recompute, conv gradient, K1 bwd)
                 # against the plain composition's autograd backward
                 ins = [a.detach().requires_grad_() for a in args]
@@ -287,6 +325,8 @@ def check_kernels(gcfg):
                 s["plain_ms"] += plain
                 s["library_ms"] += lib
                 s["bound_ms"] += b_ms
+                s["bound_ms_fp32_cuda_cores"] += bound(
+                    n_bytes, flops, H100_FP32_FLOPS)[0]
                 s["bwd_ms"] += bwd
                 s["plain_bwd_ms"] += plain_bwd
                 s["max_abs_err"] = max(s["max_abs_err"], err)
@@ -338,17 +378,24 @@ def check_kernels(gcfg):
                 f"{bb_ms:.4f} ({bb_by}) | {bb_bytes / bms / 1e6:.0f} GB/s")
             if fp32:
                 s = summary["fused_double_affine_leaky"]
-                n_served = k1_path.count((hw, c))
-                s["ms"] += n_served * ms
-                s["plain_ms"] += n_served * plain
-                s["bound_ms"] += n_served * b_ms
-                s["ms_per_train_step"] += n_step * ms
+                s["ms"] += n_step * ms
+                s["plain_ms"] += n_step * plain
+                s["bound_ms"] += n_step * b_ms
+                s["ms_per_served_forward"] += k1_path.count((hw, c)) * ms
                 s["max_abs_err"] = max(s["max_abs_err"], err)
                 s = summary["fused_double_affine_leaky_bwd"]
                 s["ms"] += n_step * bms
                 s["plain_ms"] += n_step * bplain
                 s["bound_ms"] += n_step * bb_ms
                 s["max_abs_err"] = max(s["max_abs_err"], err_dx, err_v)
+    s = summary["fused_modconv3x3"]
+    log(f"[kernels] K2 per served forward ({len(k2_shapes)} DFBlocks): fp32 "
+        f"kernel_ms {s['ms']:.4f} plain_ms {s['plain_ms']:.4f} library_ms "
+        f"{s['library_ms']:.4f} bound_ms {s['bound_ms']:.4f} (3xTF32; "
+        f"{s['bound_ms_fp32_cuda_cores']:.4f} on the fp32 CUDA cores); bf16 "
+        f"kernel_ms {s['bf16_ms']:.4f} plain_ms {s['bf16_plain_ms']:.4f} "
+        f"library_ms {s['bf16_library_ms']:.4f} bound_ms "
+        f"{s['bf16_bound_ms']:.4f}")
     return summary, len(k2_shapes), len(k1_path)
 
 
@@ -440,8 +487,9 @@ def check_resblock(gcfg):
             s["composition_ms"] += comp
             s["bound_ms"] += b_ms
             s["max_abs_err"] = max(s["max_abs_err"], err)
-            # backward: the Function (K2 or K1 + cuDNN, K1 bwd) against the
-            # plain composition's autograd, every input's gradient
+            # backward: the Function (recompute with K1 + cuDNN, K1 bwd)
+            # against the plain composition's autograd, every input's
+            # gradient
             ins = [None if a is None else a.detach().requires_grad_()
                    for a in args]
             leaves = [a for a in ins if a is not None]
@@ -651,7 +699,7 @@ def serve(root: str, k2_per_forward: int, k1_per_forward: int):
 
 def _group(name: str) -> str:
     low = name.lower()
-    if "fused_modconv3x3_kernel" in name:
+    if "fused_modconv3x3" in name:  # the conv, its weight pack, split K
         return "K2 fused_modconv3x3"
     if "fused_affine_fwd_kernel" in name:
         return "K1 fused_double_affine_leaky"
@@ -784,6 +832,7 @@ def train():
     train numbers)."""
     import torch
 
+    from gan_codes_tpu_torch.ops.kernels import fused_modconv
     from gan_codes_tpu_torch.train import losses
 
     k2, k1, k1b = _counters()
@@ -799,7 +848,14 @@ def train():
             k2.launches = k1.launches = k1b.launches = 0  # main path
             metrics = [step(state, te, *batch) for _ in range(TRAIN_STEPS)]
             counts = (k2.launches, k1.launches, k1b.launches)  # ends here
-            want = (12 * TRAIN_STEPS, 14 * TRAIN_STEPS, 14 * TRAIN_STEPS)
+            # per step: K2 at each DFBlock its _supported takes; K1 and
+            # K1 bwd at every DFBlock (K2's backward recomputes h with K1)
+            shapes = dfblock_shapes(cfg.generator)
+            n_k2 = sum(fused_modconv._supported(
+                torch.empty(3, 3, cin, cout, device="meta"))
+                for _, cin, cout in shapes)
+            want = (n_k2 * TRAIN_STEPS, len(shapes) * TRAIN_STEPS,
+                    len(shapes) * TRAIN_STEPS)
             log(f"[train] launches over {TRAIN_STEPS} steps: K2 {counts[0]}, "
                 f"K1 {counts[1]}, K1 bwd {counts[2]} (want {want})")
             if counts != want:
@@ -1104,8 +1160,8 @@ def train_entry_phase(root: str, bare_img_s: float):
     hist_b2, counts_b2, wall_b2, out_b2, tr_b2 = run("b", 2)
 
     # counters: per step one K2 per DFBlock K2 takes, one K1 and one K1
-    # bwd per DFBlock (12, 14, 14 at 256px); per eval batch (one test
-    # batch each epoch) a generator forward (12 K2, 2 K1 at 256px)
+    # bwd per DFBlock (14, 14, 14 at 256px); per eval batch (one test
+    # batch each epoch) a generator forward (14 K2, 0 K1 at 256px)
     shapes = dfblock_shapes(tr_a.cfg.generator)
     n_k2 = sum(fused_modconv._supported(
         torch.empty(3, 3, cin, cout, device="meta")) for _, cin, cout in shapes)
@@ -1276,9 +1332,12 @@ def main() -> int:
                  "shapes_per_call": s["path_shapes"]}
         if name == "fused_resblock_g":
             by_path["kernel_checks"] = k3_checks
-        for extra in ("bwd_ms", "plain_bwd_ms", "ms_per_train_step",
-                      "composition_ms", "bf16_ms", "bf16_composition_ms",
-                      "bf16_bound_ms"):
+        for extra in ("bwd_ms", "plain_bwd_ms", "ms_per_served_forward",
+                      "bound_ms_fp32_cuda_cores", "drift_vs_float64",
+                      "cudnn_drift_vs_float64", "composition_ms",
+                      "bf16_ms", "bf16_plain_ms", "bf16_library_ms",
+                      "bf16_bound_ms", "bf16_max_abs_err",
+                      "bf16_composition_ms"):
             if extra in s:
                 entry[extra] = s[extra]
         kernels.append(entry)

@@ -32,7 +32,7 @@
 //      partial per (sample, tile, gradient, channel) to scratch the wrapper
 //      allocated;
 //   2. one thread per (sample, gradient, channel) adds the tiles' partials
-//      in tile order and rounds once to T.
+//      in tile order (a compensated sum) and rounds once to T.
 // No atomics: the result repeats bit for bit from run to run.
 //
 // Numerics: the math follows x's dtype like the TPU kernel and the plain
@@ -186,7 +186,7 @@ fused_affine_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g1,
 }
 
 // Pass 2 of the backward: one thread per (sample, gradient, channel) adds
-// the tiles' partials in tile order, rounds once to T.
+// the tiles' partials in tile order, compensated, and rounds once to T.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fused_affine_bwd_reduce_kernel(const float* __restrict__ partial,
@@ -198,9 +198,19 @@ fused_affine_bwd_reduce_kernel(const float* __restrict__ partial,
   const long long b = i / (4LL * c);
   const int j = (int)((i / c) % 4);
   const int ch = (int)(i % c);
-  float s = 0.f;
-  for (int t = 0; t < n_tiles; ++t)
-    s += partial[((b * n_tiles + t) * 4 + j) * (long long)c + ch];
+  // compensated (Kahan) sum: a plain fp32 sum over the hundreds of tiles of
+  // a 256x256 map drifts by n_tiles ulps of the running sum, past allclose
+  // (1e-4) of a gradient whose terms cancel; the plain version sums
+  // pairwise
+  float s = 0.f, comp = 0.f;
+  for (int t = 0; t < n_tiles; ++t) {
+    const float y =
+        __fsub_rn(partial[((b * n_tiles + t) * 4 + j) * (long long)c + ch],
+                  comp);
+    const float next = __fadd_rn(s, y);
+    comp = __fsub_rn(__fsub_rn(next, s), y);
+    s = next;
+  }
   T* out = j == 0 ? dg1 : j == 1 ? db1 : j == 2 ? dg2 : db2;
   out[b * c + ch] = from_f<T>(s);
 }

@@ -59,12 +59,10 @@ def _df_block(affine_a: AffineBlock, affine_b: AffineBlock, conv: nn.Conv2d,
     if _supported(w):
         g1, b1 = fusion.affine_params(affine_a, sentence_embed)
         g2, b2 = fusion.affine_params(affine_b, sentence_embed)
-        # The HWIO copy is made every forward on purpose: it leaves the
-        # weight in L2 just before K2 streams it. A copy kept across
-        # forwards is read cold from HBM, and K2 on the small, latency-bound
-        # layers was measured slower for it at batch 16 (PERF.md).
+        # w stays a strided HWIO view: K2's wrapper packs it once per
+        # forward into the layout its weight stages stream
         return fused_modconv3x3(x, g1.to(dt), b1.to(dt), g2.to(dt),
-                                b2.to(dt), w.contiguous(), conv.bias.to(dt))
+                                b2.to(dt), w, conv.bias.to(dt))
     h = fusion.double_affine_leaky(affine_a, affine_b, x, sentence_embed)
     return ops_nn.conv2d(h, conv.weight, conv.bias, padding=1)
 

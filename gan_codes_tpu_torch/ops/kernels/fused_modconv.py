@@ -11,10 +11,16 @@ of device memory. It replaces the Pallas TPU kernel
 JAX package's backward is the plain composition, `fused_modconv.py:192-203`,
 and needs no kernel of its own).
 
-The CUDA kernel is `csrc/fused_modconv.cu`, a direct convolution on the fp32
-CUDA cores that modulates each halo tile in shared memory. A CPU tensor
-takes the plain PyTorch version below, `reference_modconv3x3`; a CUDA tensor
-launches the kernel or raises.
+The CUDA kernel is `csrc/fused_modconv.cu`, an implicit GEMM on the tensor
+cores (`wgmma`: bf16, and 3xTF32 for fp32) that modulates each halo chunk
+once in shared memory and streams the weights through a ring of stages.
+Each forward first packs w, read at its own strides, into the order and
+core-matrix layout the kernel copies stage by stage, with the tf32 hi/lo
+split (`tf32_split`) for fp32: a pack kernel, whose plain version is
+`_pack_weights`. `_plan` picks the N tile and the K chunk, and splits the
+chunks between blocks where the output tiles are too few to fill the card.
+A CPU tensor takes the plain PyTorch version below, `reference_modconv3x3`;
+a CUDA tensor launches the kernels or raises.
 
 `fused_modconv3x3` is a `torch.autograd.Function`. Its backward keeps K2's
 design of never writing h to memory in the forward: it saves x, recomputes
@@ -25,6 +31,8 @@ db2 from K1's backward kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -33,7 +41,11 @@ from . import _build
 from . import fused_affine
 from .fused_affine import _DTYPES, _on_cuda, reference_double_affine_leaky
 
-COUT_TILE = 64  # output channels per CUDA block (csrc/fused_modconv.cu: CO)
+COUT_STEP = 32     # Cout granularity: one wgmma n32 instruction
+# output channels of one block: the largest wgmma N in bf16; in fp32 half of
+# it, as each K chunk's sums are added into a second set of registers
+MAX_N_TILE = {torch.bfloat16: 256, torch.float32: 128}
+TARGET_BLOCKS = 264  # two resident blocks on each of the H100's 132 SMs
 
 
 def reference_modconv3x3(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
@@ -48,21 +60,145 @@ def reference_modconv3x3(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
 
 
 def _supported(w: torch.Tensor) -> bool:
-    """Whether the kernel takes this DFBlock: it tiles COUT_TILE output
-    channels per block, so Cout must be a multiple of 64. Any batch, H, W
-    and Cin are taken (the kernel masks its edges, and its 1-D grid has no
-    65535 cap). The check depends on shapes only, so CPU and CUDA tensors
-    dispatch alike."""
-    return w.shape[-1] % COUT_TILE == 0
+    """Whether the kernel takes this DFBlock: Cout a multiple of 32 (one
+    wgmma n32 instruction per 32 channels). Any batch, H, W and Cin are
+    taken (the kernel masks its edges and zero-fills a Cin tail, and its
+    1-D grid has no 65535 cap). The check depends on shapes only, so CPU
+    and CUDA tensors dispatch alike; every DFBlock of the 32-256px
+    generators at n_channels 32 is taken."""
+    return w.shape[-1] % COUT_STEP == 0
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load()
-    fn = lib.gct_fused_modconv3x3_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+class Plan(NamedTuple):
+    """How the kernel cuts one call (see csrc/fused_modconv.cu)."""
+    kc: int        # input channels per wgmma k step: 16 (bf16), 8 (fp32)
+    ks: int        # k steps per K chunk
+    chunks: int    # K chunks, ceil(Cin / (ks * kc))
+    nt: int        # N tile of nt * 32 channels: 1, 2, 4 (8 in bf16)
+    n_tiles: int   # N tiles of nt * 32 channels
+    cps: int       # K chunks per split
+    splits: int    # blocks that share one output tile (split K)
+    m_tiles: int   # 8 x 8 output tiles of the stacked image
+
+    @property
+    def blocks(self) -> int:
+        return self.m_tiles * self.n_tiles * self.splits
+
+    def scratch_bytes(self, pixels: int, cout: int, dtype) -> int:
+        """The kernel's workspace: the packed weights, rounded up to 256
+        bytes, then for split K the fp32 partial sums."""
+        pack = (self.n_tiles * self.chunks * 9 * self.ks * self.kc
+                * self.nt * COUT_STEP * (8 if dtype == torch.float32 else 2))
+        partial = self.splits * pixels * cout * 4 if self.splits > 1 else 0
+        return -(-pack // 256) * 256 + partial
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(b: int, h: int, w: int, cin: int, cout: int,
+          dtype: torch.dtype) -> Plan:
+    """The kernel's tiling of x [b, h, w, cin] -> cout. M tiles cover the
+    stacked image (the b samples one under another, one zero row between
+    neighbours); where M x N tiles are fewer than TARGET_BLOCKS, the Cin
+    chunks are split between blocks, no split holding less than one."""
+    kc, parts = (16, 1) if dtype == torch.bfloat16 else (8, 2)
+    nt = 1
+    while nt * COUT_STEP < min(cout, MAX_N_TILE[dtype]):
+        nt *= 2
+    # csrc: ks_of, a chunk's halo within 12.8 KB, a weight stage within
+    # 8 KB, and one k step a chunk for N = 32
+    ks = 1 if nt == 1 else max(1, min(4 // parts, 8 // (parts * nt)))
+    chunks = -(-cin // (ks * kc))
+    n_tiles = -(-cout // (nt * COUT_STEP))
+    m_tiles = -(-(b * (h + 1) - 1) // 8) * -(-w // 8)
+    want = -(-TARGET_BLOCKS // (m_tiles * n_tiles))
+    cps = -(-chunks // max(1, min(chunks, want)))
+    return Plan(kc, ks, chunks, nt, n_tiles, cps, -(-chunks // cps), m_tiles)
+
+
+def tf32_split(v: torch.Tensor):
+    """(hi, lo) float32 with hi = tf32(v) and lo = tf32(v - hi), both
+    rounded to nearest with ties away from zero as `cvt.rna.tf32.f32` does:
+    hi keeps 10 mantissa bits (its 13 low bits are 0), and hi + lo is v to
+    about 2^-22 relative. The operand split of the kernel's 3xTF32."""
+    def rna(t):
+        return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    hi = rna(v)
+    return hi, rna(v - hi)
+
+
+def _packed_shape(plan: Plan, parts: int):
+    ntile = plan.nt * COUT_STEP
+    return (plan.n_tiles, plan.chunks, 9, plan.ks, parts, ntile // 8, 2, 8,
+            plan.kc // 2)
+
+
+def _pack_weights(w: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """w [3, 3, Cin, Cout] HWIO (any strides) -> the kernel's weight stages,
+    zero-padded to chunks * ks * kc input and n_tiles * nt * 32 output
+    channels: [n tile][chunk][tap][k step][part][N / 8][2][8][kc / 2],
+    part = (w,) in bf16 and (hi, lo) in fp32. One stage (chunk, tap) holds
+    the B operands of ks wgmma k steps: 8-row core matrices of 16 bytes (8
+    output channels x kc / 2 input channels), the two K columns 128 bytes
+    apart and the 8-row groups 256 bytes apart."""
+    cin, cout = w.shape[2], w.shape[3]
+    kt = plan.kc // 2
+    ntile = plan.nt * COUT_STEP
+    cin_p = plan.chunks * plan.ks * plan.kc
+    cout_p = plan.n_tiles * ntile
+    if (cin_p, cout_p) != (cin, cout):
+        padded = w.new_zeros((3, 3, cin_p, cout_p))
+        padded[:, :, :cin, :cout] = w
+        w = padded
+    w = w.reshape(9, plan.chunks, plan.ks, 2, kt, plan.n_tiles, ntile // 8,
+                  8)
+    parts = tf32_split(w) if w.dtype == torch.float32 else (w,)
+    packed = w.new_empty(_packed_shape(plan, len(parts)))
+    for i, part in enumerate(parts):
+        # (tap, chunk, ks, kb, kt, ntile, nb, r)
+        #   -> (ntile, chunk, tap, ks, nb, kb, r, kt)
+        packed[:, :, :, :, i].copy_(part.permute(5, 1, 0, 2, 6, 3, 7, 4))
+    return packed
+
+
+_fns = None
+
+
+def _lib():
+    """(pack, forward): the kernel library's two entry points, typed once."""
+    global _fns
+    if _fns is None:
+        lib = _build.load()
+        pack, fwd = lib.gct_fused_modconv3x3_pack, lib.gct_fused_modconv3x3_fwd
+        pack.argtypes = ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
+                          ctypes.c_void_p] + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p])
+        fwd.argtypes = ([ctypes.c_void_p] * 6
+                        + [ctypes.POINTER(ctypes.c_longlong)]
+                        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
+                        + [ctypes.c_void_p])
+        pack.restype = fwd.restype = ctypes.c_int
+        _fns = pack, fwd
+    return _fns
+
+
+def pack_weights(w: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """`_pack_weights` for the kernel: its plain version on a CPU tensor,
+    on a CUDA tensor the pack kernel (one launch, reading w at its own
+    strides, so the HWIO view of a torch OIHW weight is not copied first)."""
+    if w.device.type == "cpu":
+        return _pack_weights(w, plan)
+    parts = 2 if w.dtype == torch.float32 else 1
+    packed = torch.empty(_packed_shape(plan, parts), dtype=w.dtype,
+                         device=w.device)
+    strides = (ctypes.c_longlong * 4)(*w.stride())
+    with torch.cuda.device(w.device):
+        rc = _lib()[0](w.data_ptr(), strides, packed.data_ptr(), w.shape[2],
+                       w.shape[3], plan.nt, plan.n_tiles, _DTYPES[w.dtype],
+                       torch.cuda.current_stream(w.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_modconv3x3 weight pack: CUDA error {rc} "
+                           f"(w {tuple(w.shape)}, {w.dtype}, {plan})")
+    return packed
 
 
 def _check(x, g1, b1, g2, b2, w, bias) -> None:
@@ -94,26 +230,32 @@ def _forward(x, g1, b1, g2, b2, w, bias) -> torch.Tensor:
     """K2 forward: the plain version for a CPU tensor, else the kernel."""
     if x.device.type == "cpu":
         return reference_modconv3x3(x, g1, b1, g2, b2, w, bias)
-    _on_cuda(("x", "g1", "b1", "g2", "b2", "w", "bias"),
-             (x, g1, b1, g2, b2, w, bias))
+    # w may be any strided HWIO view: the pack reads it once
+    _on_cuda(("x", "g1", "b1", "g2", "b2", "bias"), (x, g1, b1, g2, b2, bias))
     if not _supported(w):
-        raise ValueError(f"fused_modconv3x3 takes Cout % {COUT_TILE} == 0, "
+        raise ValueError(f"fused_modconv3x3 takes Cout % {COUT_STEP} == 0, "
                          f"got w {tuple(w.shape)}")
     b, h, wd, cin = x.shape
     cout = w.shape[3]
     out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    plan = _plan(b, h, wd, cin, cout, x.dtype)
+    # one allocation for the packed weights and the split-K partial sums;
+    # one call packs, convolves and adds the splits
+    scratch = torch.empty(plan.scratch_bytes(b * h * wd, cout, x.dtype),
+                          dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
-        rc = _lib().gct_fused_modconv3x3_fwd(
+        rc = _lib()[1](
             x.data_ptr(), g1.data_ptr(), b1.data_ptr(), g2.data_ptr(),
-            b2.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            b, h, wd, cin, cout, _DTYPES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
+            b2.data_ptr(), w.data_ptr(), (ctypes.c_longlong * 4)(*w.stride()),
+            bias.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, h, wd,
+            cin, cout, plan.nt, plan.n_tiles, plan.cps, plan.splits,
+            _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_modconv3x3: CUDA error {rc} at launch "
                            f"(x {tuple(x.shape)}, w {tuple(w.shape)}, "
-                           f"{x.dtype})")
+                           f"{x.dtype}, {plan})")
     fused_modconv3x3.launches += 1
     return out
 
@@ -155,7 +297,8 @@ def fused_modconv3x3(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
     """conv3x3_same(lrelu(g2 * lrelu(g1 * x + b1) + b2), w) + bias.
 
     Differentiable in all seven inputs. CPU tensors run the plain versions;
-    CUDA tensors must be contiguous and `_supported`, and run the kernels
+    CUDA tensors must be `_supported` and contiguous (w may be any strided
+    view: it is packed once per forward), and run the kernels
     (each forward launch adds one to `fused_modconv3x3.launches`; the
     backward launches K1 and K1 bwd, and counts on their counters)."""
     _check(x, g1, b1, g2, b2, w, bias)

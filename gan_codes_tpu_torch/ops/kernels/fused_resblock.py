@@ -24,10 +24,14 @@ Unlike the JAX op, which falls back to the composition for a shape its
 kernel declines, a CUDA tensor of a shape K3 does not take raises.
 
 `fused_resblock_g` is a `torch.autograd.Function`, differentiable in all
-16 inputs. Its backward recomputes the block through the port's own
-DFBlock ops (K2's Function where `fused_modconv._supported` holds, else K1
-and a torch conv; the shortcut and gamma as torch ops) and takes their
-autograd gradient, so on the card it runs K2, K1 and K1 bwd.
+16 inputs. Its backward recomputes the block as the JAX package's VJP
+recomputes `_xla_composition`: each DFBlock as K1 and a torch conv (the
+shortcut and gamma as torch ops), then takes their autograd gradient, so
+on the card it runs K1, cuDNN and K1 bwd. K1 equals its plain version bit
+for bit, so the recomputed h1 is the plain composition's and the LeakyReLU
+masks of the second DFBlock are too; recomputed through K2, whose sums
+round otherwise, an h1 near a mask's kink can flip it and move a gradient
+by about 1e-3 of its largest element.
 """
 from __future__ import annotations
 
@@ -156,20 +160,23 @@ def _forward(*args) -> torch.Tensor:
     return out
 
 
-def _df_block(x, ga, ba, gb, bb, w, c) -> torch.Tensor:
-    """One DFBlock through the port's kernels, as `ops/blocks.py` runs it:
-    K2 where it takes the shape, else K1 and a torch conv."""
-    if fused_modconv._supported(w):
+def _df_block(x, ga, ba, gb, bb, w, c, fused: bool) -> torch.Tensor:
+    """One DFBlock through the port's kernels: K2 where `fused` and it
+    takes the shape (as `ops/blocks.py` runs it), else K1 and a torch
+    conv."""
+    if fused and fused_modconv._supported(w):
         return fused_modconv.fused_modconv3x3(x, ga, ba, gb, bb, w, c)
     h = fused_affine.fused_double_affine_leaky(x, ga, ba, gb, bb)
     return ops_nn.conv2d(h, w.permute(3, 2, 0, 1), c, padding=1)
 
 
 def _composition(x, g1, b1, g2, b2, w1, c1, g3, b3, g4, b4, w2, c2, gamma,
-                 ws, cs) -> torch.Tensor:
-    """The block through the DFBlock kernels (the backward's recompute)."""
-    h1 = _df_block(x, g1, b1, g2, b2, w1, c1)
-    h2 = _df_block(h1, g3, b3, g4, b4, w2, c2)
+                 ws, cs, fused: bool = True) -> torch.Tensor:
+    """The block through the DFBlock kernels: with `fused`, as the model
+    path computes it; without, K1 and torch convs (the backward's
+    recompute)."""
+    h1 = _df_block(x, g1, b1, g2, b2, w1, c1, fused)
+    h2 = _df_block(h1, g3, b3, g4, b4, w2, c2, fused)
     shortcut = x
     if ws is not None:
         shortcut = ops_nn.conv2d(x, ws.permute(3, 2, 0, 1), cs)
@@ -192,7 +199,7 @@ class _FusedResBlockG(torch.autograd.Function):
             leaves = [None if t is None else
                       t.detach().requires_grad_(bool(need))
                       for t, need in zip(saved, ctx.needs_input_grad)]
-            out = _composition(*leaves)
+            out = _composition(*leaves, fused=False)
             wanted = [i for i, t in enumerate(leaves)
                       if t is not None and t.requires_grad]
             grads = torch.autograd.grad(out, [leaves[i] for i in wanted],
@@ -215,7 +222,7 @@ def fused_resblock_g(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
     Differentiable in all 16 inputs. CPU tensors run the plain versions;
     CUDA tensors must be contiguous and `_supported`, and run the kernels
     (each forward launch adds one to `fused_resblock_g.launches`; the
-    backward launches K2, K1 and K1 bwd and counts on their counters)."""
+    backward launches K1 and K1 bwd and counts on their counters)."""
     _check(x, g1, b1, g2, b2, w1, c1, g3, b3, g4, b4, w2, c2, gamma, ws, cs)
     return _FusedResBlockG.apply(x, g1, b1, g2, b2, w1, c1, g3, b3, g4, b4,
                                  w2, c2, gamma.reshape(1).to(x.dtype), ws,

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
-K1 forward and backward, K2 forward, K3 forward, and the gradients of the
-kernels' autograd Functions against the plain versions' autograd.
+K1 forward and backward, K2 forward and its weight pack, K3 forward, and
+the gradients of the kernels' autograd Functions against the plain
+versions' autograd.
 
 Every test here is marked `cuda` and skips without a CUDA device. On a
 machine with one (and nvcc), with or without JAX installed:
@@ -85,15 +86,26 @@ class TestKernelsOnCard:
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("dims", [(2, 16, 16, 32, 64),
-                                      (1, 5, 7, 3, 128)])
+                                      (1, 5, 7, 3, 128),
+                                      (2, 24, 20, 64, 32),
+                                      (8, 4, 4, 256, 256),
+                                      (3, 9, 10, 20, 320)])
     def test_k2(self, cuda, dtype, dims):
+        """Several tiles and chunks; ragged 5x7 with Cin 3 (element loads,
+        a zero-filled K tail); Cout 32 (one n32 tile); a 4x4 map at batch 8
+        (M tiles across samples, split K); Cout 320 (two N tiles, the
+        second part empty) over a Cin of 20. fp32 (3xTF32, TF32 off)
+        allclose 1e-4; bf16 max|err| <= 2^-6 max|ref|. A second call gives
+        the same result bit for bit."""
         args = [torch.from_numpy(a).to(cuda, dtype)
                 for a in _k2_inputs(*dims)]
         before = fused_modconv.fused_modconv3x3.launches
         got = fused_modconv.fused_modconv3x3(*args)
+        again = fused_modconv.fused_modconv3x3(*args)
         want = fused_modconv.reference_modconv3x3(*args)
         torch.cuda.synchronize()
-        assert fused_modconv.fused_modconv3x3.launches == before + 1
+        assert fused_modconv.fused_modconv3x3.launches == before + 2
+        assert torch.equal(got, again)
         if dtype == torch.float32:
             torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
         else:
@@ -180,9 +192,23 @@ class TestKernelsOnCard:
 
     def test_k2_refuses_unsupported_cout(self, cuda):
         args = [torch.from_numpy(a).to(cuda)
-                for a in _k2_inputs(1, 4, 4, 8, 32)]
+                for a in _k2_inputs(1, 4, 4, 8, 48)]
         with pytest.raises(ValueError, match="Cout"):
             fused_modconv.fused_modconv3x3(*args)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("dims", [(2, 8, 8, 20, 96), (8, 4, 4, 64, 288),
+                                      (1, 64, 64, 64, 32)])
+    def test_k2_weight_pack(self, cuda, dtype, dims):
+        """The pack kernel, reading the HWIO view of an OIHW weight at its
+        strides, against its plain version bit for bit (with the tf32
+        split in fp32)."""
+        plan = fused_modconv._plan(*dims, dtype)
+        w = torch.from_numpy(_k2_inputs(1, 1, 1, *dims[3:])[5]).to(dtype)
+        w = w.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
+        got = fused_modconv.pack_weights(w.to(cuda), plan)
+        want = fused_modconv.pack_weights(w, plan)
+        assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda
@@ -229,8 +255,8 @@ class TestResBlockOnCard:
 
     @pytest.mark.parametrize("shortcut", [False, True])
     def test_k3_backward(self, cuda, shortcut):
-        """All 16 (or 14) input gradients through the Function (K2, or K1
-        and cuDNN, K1 bwd) against the plain composition's autograd, fp32:
+        """All 16 (or 14) input gradients through the Function (K1 and
+        cuDNN, K1 bwd) against the plain composition's autograd, fp32:
         max|err| <= 1e-3 max|ref| per input."""
         cin, cout = (64, 64) if not shortcut else (64, 32)
         arrays = _k3_inputs(2, 16, 16, cin, cout, shortcut, seed=1)

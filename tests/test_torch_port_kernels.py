@@ -7,6 +7,8 @@ and against the JAX package's own plain reference, on the same numpy
 inputs. The CUDA kernels themselves run only on a card:
 tests/test_torch_port_cuda.py holds them against these plain versions.
 """
+from unittest import mock
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +19,9 @@ from gan_codes_tpu.ops.pallas.fused_affine import (
     jax_k1_ref)
 from gan_codes_tpu.ops.pallas.fused_modconv import (
     _xla_composition as jax_k2_ref, fused_modconv3x3 as jax_k2)
+from gan_codes_tpu_torch.config import GeneratorConfig
+from gan_codes_tpu_torch.models.generator import Generator
+from gan_codes_tpu_torch.ops import blocks
 from gan_codes_tpu_torch.ops.kernels import fused_affine, fused_modconv
 
 
@@ -78,6 +83,7 @@ class TestK2Plain:
         (2, 16, 16, 8, 16),   # tests/test_pallas.py's forward shape
         (1, 128, 8, 4, 4),    # two row tiles of the Pallas kernel
         (2, 5, 7, 3, 64),     # odd spatial dims, a Cout the CUDA kernel takes
+        (2, 8, 8, 16, 32),    # Cout 32: one wgmma n32 tile of the CUDA kernel
     ])
     def test_matches_jax_kernel_and_composition(self, dims):
         # conv sums are reordered across frameworks: atol/rtol 1e-4
@@ -106,10 +112,33 @@ class TestK2Plain:
         assert torch.equal(out[0, :, :, 0], taps * 6.0 * c)
 
     def test_supported_follows_the_cuda_kernel_limits(self):
-        # Cout % 64 only: no limit on batch, H, W or Cin to pass here
+        # Cout % 32 only: no limit on batch, H, W or Cin to pass here
         assert fused_modconv._supported(torch.empty(3, 3, 32, 64))
         assert fused_modconv._supported(torch.empty(3, 3, 3, 256))
-        assert not fused_modconv._supported(torch.empty(3, 3, 32, 32))
+        assert fused_modconv._supported(torch.empty(3, 3, 64, 32))
+        assert fused_modconv._supported(torch.empty(3, 3, 5, 544))
+        for cout in (16, 48, 100):
+            assert not fused_modconv._supported(torch.empty(3, 3, 32, cout))
+
+    def test_every_dfblock_of_the_32px_generator_dispatches_to_k2(self):
+        """n_channels 32: Cout 256, 128, 64 and 32, all K2's; K1's plain
+        DFBlock path is never taken."""
+        cfg = GeneratorConfig(image_size=32)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            gen = Generator(cfg)
+            noise, sent = torch.randn(1, cfg.latent_dim), torch.randn(1, 256)
+        with mock.patch.object(blocks, "fused_modconv3x3",
+                               wraps=blocks.fused_modconv3x3) as k2, \
+                mock.patch.object(blocks.fusion, "double_affine_leaky",
+                                  wraps=blocks.fusion.double_affine_leaky
+                                  ) as k1, torch.no_grad():
+            out = gen(noise, sent)
+        assert out.shape == (1, 32, 32, 3)
+        assert k2.call_count == 2 * len(cfg.block_channels) == 8
+        assert k1.call_count == 0
+        assert sorted({c.args[5].shape[3] for c in k2.call_args_list}) == [
+            32, 64, 128, 256]
 
     def test_rejects_bad_inputs(self):
         args = list(map(torch.from_numpy, _k2_inputs(2, 4, 4, 8, 64)))
@@ -121,3 +150,78 @@ class TestK2Plain:
             fused_modconv.fused_modconv3x3(*bad_bias)
         with pytest.raises(TypeError, match="dtype"):
             fused_modconv.fused_modconv3x3(*args[:6], args[6].double())
+
+
+class TestK2Layout:
+    """The host side of the CUDA kernel: the tf32 operand split, the weight
+    pack (the plain version of the pack kernel) and the tiling plan."""
+
+    def test_tf32_split_rounds_as_cvt_rna(self):
+        """hi = tf32(v) rounded to nearest, ties away from zero (10 mantissa
+        bits, the 13 low bits 0); lo = tf32(v - hi); hi + lo is v within
+        2^-22 relative."""
+        rng = np.random.default_rng(4)
+        v = (rng.standard_normal(4096)
+             * 2.0 ** rng.integers(-20, 20, 4096)).astype(np.float32)
+        ties = np.float32([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -11,
+                           1 + 2 ** -11 - 2 ** -23, 0.0])
+        v = np.concatenate([v, ties])
+        hi, lo = fused_modconv.tf32_split(torch.from_numpy(v))
+        hi, lo = hi.numpy(), lo.numpy()
+        assert not (hi.view(np.uint32) & 0x1FFF).any()
+        assert not (lo.view(np.uint32) & 0x1FFF).any()
+        # the reference: 11 significant bits, half away from zero
+        m, e = np.frexp(v.astype(np.float64))
+        want = np.ldexp(np.sign(m) * np.floor(np.abs(m) * 2 ** 11 + 0.5)
+                        / 2 ** 11, e)
+        np.testing.assert_array_equal(hi, want.astype(np.float32))
+        np.testing.assert_array_equal(
+            hi[-5:], np.float32([1 + 2 ** -10, -(1 + 2 ** -10),
+                                 1 + 2 ** -9, 1, 0]))
+        err = np.abs(hi.astype(np.float64) + lo - v)
+        assert (err <= 2.0 ** -22 * np.abs(v)).all()
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("dims", [(2, 8, 8, 20, 96), (8, 4, 4, 64, 288)])
+    def test_pack_holds_each_weight_where_the_layout_says(self, dtype, dims):
+        """[n tile][chunk][tap][k step][part][N / 8][2][8][kc / 2]: w of
+        input channel (chunk * ks + k step) * kc + K column * kc / 2 + k and
+        output channel n tile * N + 8 * (N / 8 index) + row; 0 past Cin and
+        Cout; in fp32 the parts are the tf32 (hi, lo) split of w."""
+        b, h, w, cin, cout = dims
+        plan = fused_modconv._plan(b, h, w, cin, cout, dtype)
+        wt = torch.from_numpy(_k2_inputs(1, 1, 1, cin, cout)[5]).to(dtype)
+        # the HWIO view of an OIHW weight, as ops/blocks.py passes it
+        wt = wt.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
+        packed = fused_modconv.pack_weights(wt, plan)
+        parts = (fused_modconv.tf32_split(wt) if dtype == torch.float32
+                 else (wt,))
+        assert packed.shape == (plan.n_tiles, plan.chunks, 9, plan.ks,
+                                len(parts), plan.nt * 4, 2, 8, plan.kc // 2)
+        idx = np.indices(packed.shape).reshape(9, -1)
+        nt, ch, tap, q, p, nb, kb, r, k = idx
+        ci = (ch * plan.ks + q) * plan.kc + kb * (plan.kc // 2) + k
+        co = nt * plan.nt * 32 + nb * 8 + r
+        inside = (ci < cin) & (co < cout)
+        got = packed.reshape(-1)
+        assert not got[torch.from_numpy(~inside)].any()
+        want = torch.stack(parts)[p[inside], tap[inside] // 3,
+                                  tap[inside] % 3, ci[inside], co[inside]]
+        assert torch.equal(got[torch.from_numpy(inside)], want)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_plan_covers_k_and_n_and_fills_the_card(self, dtype):
+        """At every DFBlock of the 256px generator, batch 8: the N tiles
+        cover Cout, the splits cover the K chunks with none empty, and the
+        grid has at least 132 blocks (one per SM) unless every chunk is a
+        split of its own."""
+        cfg = GeneratorConfig()
+        for i, (cin, cout) in enumerate(cfg.block_channels):
+            hw = cfg.base_size * 2 ** i
+            for c in (cin, cout):
+                p = fused_modconv._plan(8, hw, hw, c, cout, dtype)
+                ntile = p.nt * fused_modconv.COUT_STEP
+                assert p.n_tiles * ntile >= cout > (p.n_tiles - 1) * ntile
+                assert p.chunks * p.ks * p.kc >= c
+                assert p.splits * p.cps >= p.chunks > (p.splits - 1) * p.cps
+                assert p.blocks >= 132 or p.cps == 1
