@@ -12,13 +12,17 @@ Phases (any failed check raises, so the run exits non-zero):
    the card's name and power limit.
 2. Kernels: calls each kernel's wrapper on the card at the shapes the main
    paths give it (batch 8): K2 at every DFBlock its `_supported` takes (all
-   14 of the 256px generator), K1 and K1 bwd at the input of every DFBlock
-   of a train step (14 DFBlocks, 10 distinct shapes; K2's backward
-   recomputes h with K1; the served forward runs K1 on the DFBlocks K2
-   declines, none at 256px), in float32 with TF32 off and in bfloat16, and
-   holds each result against the kernel's plain PyTorch version on the
-   same inputs, K2's also against a second call bit for bit. Prints errors,
-   kernel / plain / library times (CUDA events) and the bound, and K2's
+   14 of the 256px generator), K1 bwd at the input of every DFBlock of a
+   train step (14 DFBlocks, 10 distinct shapes; K2's backward runs it with
+   z, which gives h for the weight gradient), K1 at the same shapes (the
+   served forward runs it on the DFBlocks K2 declines, none at 256px), in
+   float32 with TF32 off and in bfloat16, and holds each result against
+   the kernel's plain PyTorch version on the same inputs, K2's and K1
+   bwd's also against a second call bit for bit, K1 bwd's z against K1's
+   output bit for bit. Prints errors, kernel / plain / library times (CUDA
+   events; K1 both as device time, GRAPH_CALLS calls in one CUDA graph,
+   and as back-to-back eager calls, whose gap is the wrapper's host cost)
+   and the bound, the clusters of K1 bwd the card holds at once, and K2's
    backward (its autograd Function) against the plain composition's
    autograd backward. K3 (`fused_resblock_g`, on no model path) runs at
    the 7 residual-block shapes of the 256px generator, batch 8, in both
@@ -45,7 +49,7 @@ Phases (any failed check raises, so the run exits non-zero):
    seeded text encoder and a seeded batch of TRAIN_BATCH images in [-1, 1]
    and random captions, and runs `make_train_step`'s 3-phase step:
    TRAIN_STEPS steps in float32 (TF32 off) with the launch counters set to
-   0 just before and read just after (14 K2, 14 K1, 14 K1 bwd per step),
+   0 just before and read just after (14 K2, 0 K1, 14 K1 bwd per step),
    then in bfloat16; every metric must be finite. Prints train img/s over
    two windows of at least TRAIN_WINDOW_S seconds (CUDA events), the peak
    device memory, the device time of a step by kernel group
@@ -62,7 +66,7 @@ Phases (any failed check raises, so the run exits non-zero):
    Adam moments, step, RNG); B's second-epoch losses within rtol 1e-3 of
    A's (cuDNN is not deterministic run to run); the checkpoint files,
    one metrics row per epoch and the sample grid exist; the launch
-   counters rise by 14 K2, 14 K1 and 14 K1 bwd per step plus 14 K2 and 0
+   counters rise by 14 K2, 0 K1 and 14 K1 bwd per step plus 14 K2 and 0
    K1 per eval batch; `build_sampler` serves B's `gen_1.pth` over HTTP.
    Prints the trainer's img/s with the device time of its steps and
    copies and the host's data wait, eval and checkpoint seconds, beside
@@ -94,6 +98,7 @@ KERNEL_BATCH = 8
 LATENCY_REQUESTS = 300          # single-prompt HTTP requests, one at a time
 THROUGHPUT_BATCHES = {16: 300, 64: 150}  # several seconds per window
 THROUGHPUT_WINDOWS = 2
+GRAPH_CALLS = 20                 # K1 calls captured in one CUDA graph
 TRAIN_BATCH = 24                 # the JAX package's TrainConfig default
 TRAIN_STEPS = 3                  # counted steps per dtype (main path)
 TRAIN_WINDOW_S = 3.5             # seconds per train throughput window
@@ -113,9 +118,13 @@ H100_TF32_TENSOR_FLOPS = 495e12  # dense tensor cores; K2's fp32 runs
 #   version does, so one-ulp flips of the rounded sum are expected:
 #   max|err| <= 2^-6 * max|ref|. A second call equals the first bit for
 #   bit (split K adds its partial sums in a fixed order).
-#   K1 bwd: dx rounds where the plain version rounds: fp32 allclose(1e-6),
-#   bf16 max|err| <= 2^-7 * max|ref|; dg1/db1/dg2/db2 add H*W products in
-#   fp32 in another order: fp32 allclose(1e-4), bf16 <= 2^-6 * max|ref|.
+#   K1 bwd (one launch; with z where K2's backward asks): dx rounds where
+#   the plain version rounds: fp32 allclose(1e-6), bf16 max|err| <= 2^-7 *
+#   max|ref|; dg1/db1/dg2/db2 add H*W products in another order (pairs
+#   of pixels in fp32, then fp64: a tree in each block, the cluster's
+#   blocks in rank order): fp32 allclose(1e-4), bf16 <= 2^-6 * max|ref|;
+#   a second call, and the call without z, equal it bit for bit; z equals
+#   K1's output bit for bit.
 #   K3 chains two convs, each summed in another order than cuDNN: fp32
 #   allclose(2e-4, 2e-4); bf16 rounds h1 and h2 to bf16, so each conv may
 #   flip one ulp: max|err| <= 2^-5 * max|ref|. Its backward (fp32) against
@@ -159,6 +168,34 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = GRAPH_CALLS) -> float:
+    """Device milliseconds per call: `calls` calls of fn captured in one
+    CUDA graph, replayed twice between CUDA events after a warm replay (no
+    host time between the kernels)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (2 * calls)
 
 
 def bound(n_bytes: float, flops: float, peak_flops: float):
@@ -207,8 +244,9 @@ def check_kernels(gcfg):
     k2_shapes = [s for s in shapes if fused_modconv._supported(
         torch.empty(3, 3, s[1], s[2], device="meta"))]
     k1_path = [(s[0], s[1]) for s in shapes if s not in k2_shapes]
-    # a train step runs K1 (forward, and backward) at every DFBlock input:
-    # forward on the K2 declines, and inside K2's backward on the rest
+    # a train step runs K1 bwd at every DFBlock input (inside K2's
+    # backward, with z; in K1's own backward on the K2 declines), and K1's
+    # forward only on the K2 declines
     k1_step = [(s[0], s[1]) for s in shapes]
     summary = {
         "fused_modconv3x3": dict(
@@ -225,18 +263,23 @@ def check_kernels(gcfg):
             route="cuda", source="gan_codes_tpu_torch/csrc/fused_affine.cu",
             replaces="gan_codes_tpu/ops/pallas/fused_affine.py:71",
             ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
-            max_abs_err=0.0, bound_by="bytes", ms_per_served_forward=0.0,
-            per="train step", path_shapes=len(k1_step)),
+            max_abs_err=0.0, bound_by="bytes", call_ms=0.0,
+            ms_per_served_forward=0.0, bf16_ms=0.0, bf16_call_ms=0.0,
+            bf16_bound_ms=0.0, per="14 DFBlock inputs (a train step's "
+            "shapes); device time, CUDA graph", path_shapes=len(k1_step)),
         "fused_double_affine_leaky_bwd": dict(
             route="cuda", source="gan_codes_tpu_torch/csrc/fused_affine.cu",
             replaces="gan_codes_tpu/ops/pallas/fused_affine.py:133",
             ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
-            max_abs_err=0.0, bound_by="bytes", per="train step",
-            path_shapes=len(k1_step)),
+            max_abs_err=0.0, bound_by="bytes", call_ms=0.0,
+            no_z_ms=0.0, no_z_call_ms=0.0, no_z_bound_ms=0.0, bf16_ms=0.0,
+            bf16_call_ms=0.0, bf16_bound_ms=0.0,
+            per="train step (with z, as K2's backward runs it); device "
+            "time, CUDA graph", path_shapes=len(k1_step)),
     }
     log(f"[kernels] per forward: K2 takes {len(k2_shapes)} DFBlocks "
         f"{k2_shapes}, K1 takes {len(k1_path)} {k1_path}; per train step "
-        f"K1 and K1 bwd take all {len(k1_step)}")
+        f"K1 bwd takes all {len(k1_step)}")
 
     def rand(*shape, dtype, scale=1.0):
         return (torch.randn(*shape, device=dev, generator=gen) * scale
@@ -307,8 +350,9 @@ def check_kernels(gcfg):
                 s["bf16_bound_ms"] += b_ms
                 s["bf16_max_abs_err"] = max(s["bf16_max_abs_err"], err)
             else:
-                # K2's backward (K1 recompute, conv gradient, K1 bwd)
-                # against the plain composition's autograd backward
+                # K2's backward (conv input gradient, K1 bwd with h, conv
+                # weight gradient) against the plain composition's autograd
+                # backward
                 ins = [a.detach().requires_grad_() for a in args]
                 dy = rand(B, hw, hw, cout, dtype=dtype)
                 out = fused_modconv.fused_modconv3x3(*ins)
@@ -335,59 +379,15 @@ def check_kernels(gcfg):
         for (hw, c) in k1_step:
             seen[(hw, c)] = seen.get((hw, c), 0) + 1
         for (hw, c), n_step in seen.items():
-            x = rand(B, hw, hw, c, dtype=dtype)
-            vecs = [rand(B, c, dtype=dtype) for _ in range(4)]
-            dy = rand(B, hw, hw, c, dtype=dtype)
-            out = fused_affine.fused_double_affine_leaky(x, *vecs)
-            ref = fused_affine.reference_double_affine_leaky(x, *vecs)
-            got_b = fused_affine.fused_double_affine_leaky_bwd(x, *vecs, dy)
-            ref_b = fused_affine.reference_double_affine_leaky_bwd(x, *vecs,
-                                                                   dy)
-            torch.cuda.synchronize()
-            tag = f"{name} {(B, hw, hw, c)}"
-            err = _held(f"K1 {tag}", out, ref, fp32, 1e-6, -7)
-            err_dx = _held(f"K1 bwd dx {tag}", got_b[0], ref_b[0], fp32,
-                           1e-6, -7)
-            err_v = max(_held(f"K1 bwd d{v} {tag}", g, r, fp32, 1e-4, -6)
-                        for v, g, r in zip(("g1", "b1", "g2", "b2"),
-                                           got_b[1:], ref_b[1:]))
-            iters = 20 if hw >= 128 else 50
-            ms = cuda_ms(lambda: fused_affine.fused_double_affine_leaky(
-                x, *vecs), iters)
-            plain = cuda_ms(lambda: fused_affine.reference_double_affine_leaky(
-                x, *vecs), iters)
-            bms = cuda_ms(lambda: fused_affine.fused_double_affine_leaky_bwd(
-                x, *vecs, dy), iters)
-            bplain = cuda_ms(
-                lambda: fused_affine.reference_double_affine_leaky_bwd(
-                    x, *vecs, dy), iters)
-            n_bytes = (2 * x.numel() + 4 * B * c) * esize
-            b_ms, b_by = bound(n_bytes, 6.0 * x.numel(), H100_FP32_FLOPS)
-            # backward: read x and dy, write dx; read 4, write 4 [B, C]
-            bb_bytes = (3 * x.numel() + 8 * B * c) * esize
-            bb_ms, bb_by = bound(bb_bytes, 20.0 * x.numel(), H100_FP32_FLOPS)
-            top = ref.float().abs().max().item()
-            log(f"[kernels] K1 {name} x[{B},{hw},{hw},{c}] (x{n_step} per "
-                f"step, {k1_path.count((hw, c))} per served forward): "
-                f"max_abs_err {err:.3g} max_rel_err {err / top:.3g} | "
-                f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
-                f"{b_ms:.4f} ({b_by}) | {n_bytes / ms / 1e6:.0f} GB/s")
-            log(f"[kernels] K1 bwd {name} x[{B},{hw},{hw},{c}] (x{n_step} "
-                f"per step): max_abs_err dx {err_dx:.3g} dg/db {err_v:.3g} | "
-                f"kernel_ms {bms:.4f} plain_ms {bplain:.4f} bound_ms "
-                f"{bb_ms:.4f} ({bb_by}) | {bb_bytes / bms / 1e6:.0f} GB/s")
-            if fp32:
-                s = summary["fused_double_affine_leaky"]
-                s["ms"] += n_step * ms
-                s["plain_ms"] += n_step * plain
-                s["bound_ms"] += n_step * b_ms
-                s["ms_per_served_forward"] += k1_path.count((hw, c)) * ms
-                s["max_abs_err"] = max(s["max_abs_err"], err)
-                s = summary["fused_double_affine_leaky_bwd"]
-                s["ms"] += n_step * bms
-                s["plain_ms"] += n_step * bplain
-                s["bound_ms"] += n_step * bb_ms
-                s["max_abs_err"] = max(s["max_abs_err"], err_dx, err_v)
+            check_k1(summary, B, hw, c, n_step, k1_path.count((hw, c)),
+                     dtype, rand)
+    for key in ("fused_double_affine_leaky", "fused_double_affine_leaky_bwd"):
+        s = summary[key]
+        log(f"[kernels] {key} over the {len(k1_step)} DFBlock inputs: fp32 "
+            f"device_ms {s['ms']:.4f} call_ms {s['call_ms']:.4f} bound_ms "
+            f"{s['bound_ms']:.4f} plain_ms {s['plain_ms']:.4f}; bf16 "
+            f"device_ms {s['bf16_ms']:.4f} call_ms {s['bf16_call_ms']:.4f} "
+            f"bound_ms {s['bf16_bound_ms']:.4f}")
     s = summary["fused_modconv3x3"]
     log(f"[kernels] K2 per served forward ({len(k2_shapes)} DFBlocks): fp32 "
         f"kernel_ms {s['ms']:.4f} plain_ms {s['plain_ms']:.4f} library_ms "
@@ -397,6 +397,103 @@ def check_kernels(gcfg):
         f"library_ms {s['bf16_library_ms']:.4f} bound_ms "
         f"{s['bf16_bound_ms']:.4f}")
     return summary, len(k2_shapes), len(k1_path)
+
+
+def check_k1(summary, B, hw, c, n_step, n_served, dtype, rand):
+    """Phase 2, K1 and K1 bwd at one DFBlock input [B, hw, hw, c]: held
+    against the plain versions, K1 bwd's z against K1's output and a
+    second call bit for bit; timed as device time (CUDA graph) and as
+    eager calls; added into the summaries `n_step` times (per train step)
+    and `n_served` times (per served forward)."""
+    import torch
+
+    from gan_codes_tpu_torch.ops.kernels import fused_affine as fa
+
+    fp32 = dtype == torch.float32
+    name = "fp32" if fp32 else "bf16"
+    x = rand(B, hw, hw, c, dtype=dtype)
+    vecs = [rand(B, c, dtype=dtype) for _ in range(4)]
+    dy = rand(B, hw, hw, c, dtype=dtype)
+    out = fa.fused_double_affine_leaky(x, *vecs)
+    ref = fa.reference_double_affine_leaky(x, *vecs)
+    got = fa.fused_double_affine_leaky_bwd(x, *vecs, dy, want_z=True)
+    again = fa.fused_double_affine_leaky_bwd(x, *vecs, dy, want_z=True)
+    no_z = fa.fused_double_affine_leaky_bwd(x, *vecs, dy)
+    ref_b = fa.reference_double_affine_leaky_bwd(x, *vecs, dy)
+    torch.cuda.synchronize()
+    tag = f"{name} {(B, hw, hw, c)}"
+    err = _held(f"K1 {tag}", out, ref, fp32, 1e-6, -7)
+    err_dx = _held(f"K1 bwd dx {tag}", got[0], ref_b[0], fp32, 1e-6, -7)
+    err_v = max(_held(f"K1 bwd d{v} {tag}", g, r, fp32, 1e-4, -6)
+                for v, g, r in zip(("g1", "b1", "g2", "b2"), got[1:5],
+                                   ref_b[1:]))
+    if not torch.equal(got[5], out):
+        raise AssertionError(f"K1 bwd {tag}: z differs from K1's output")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)) or not all(
+            torch.equal(a, b) for a, b in zip(got, no_z)):
+        raise AssertionError(f"K1 bwd {tag}: a second call, or the call "
+                             "without z, differs")
+    del got, again, no_z
+    calls = {
+        "fwd": lambda: fa.fused_double_affine_leaky(x, *vecs),
+        "bwd_z": lambda: fa.fused_double_affine_leaky_bwd(x, *vecs, dy,
+                                                          want_z=True),
+        "bwd": lambda: fa.fused_double_affine_leaky_bwd(x, *vecs, dy)}
+    iters = 20 if hw >= 128 else 50
+    dev_ms = {k: graph_ms(fn) for k, fn in calls.items()}
+    call_ms = {k: cuda_ms(fn, iters) for k, fn in calls.items()}
+    plain = cuda_ms(lambda: fa.reference_double_affine_leaky(x, *vecs), iters)
+    bplain = cuda_ms(lambda: fa.reference_double_affine_leaky_bwd(
+        x, *vecs, dy, want_z=True), iters)
+    n = x.numel() * x.element_size()
+    # bytes: forward 2N (read x, write out), backward 3N (read x and dy,
+    # write dx), with z 4N; the [B, C] vectors are negligible
+    bounds = {k: bound(m * n, f * x.numel(), H100_FP32_FLOPS)
+              for k, m, f in (("fwd", 2, 6.0), ("bwd", 3, 20.0),
+                              ("bwd_z", 4, 22.0))}
+    plan = fa._plan(B, hw * hw, c, dtype)
+    clusters = fa.max_active_clusters(plan, dtype)
+    top = ref.float().abs().max().item()
+    log(f"[kernels] K1 {name} x[{B},{hw},{hw},{c}] (x{n_step} per step, "
+        f"{n_served} per served forward): max_abs_err {err:.3g} "
+        f"max_rel_err {err / top:.3g} | device_ms {dev_ms['fwd']:.4f} "
+        f"call_ms {call_ms['fwd']:.4f} plain_ms {plain:.4f} bound_ms "
+        f"{bounds['fwd'][0]:.4f} ({bounds['fwd'][1]}) | "
+        f"{2 * n / dev_ms['fwd'] / 1e6:.0f} GB/s")
+    log(f"[kernels] K1 bwd {name} x[{B},{hw},{hw},{c}] (x{n_step} per "
+        f"step; {plan}, {plan.blocks(B)} blocks, the card holds "
+        f"{clusters} clusters of {plan.split}): max_abs_err dx "
+        f"{err_dx:.3g} dg/db {err_v:.3g}, z bit-equal | with z device_ms "
+        f"{dev_ms['bwd_z']:.4f} call_ms {call_ms['bwd_z']:.4f} bound_ms "
+        f"{bounds['bwd_z'][0]:.4f} ({bounds['bwd_z'][1]}) "
+        f"{4 * n / dev_ms['bwd_z'] / 1e6:.0f} GB/s | without z device_ms "
+        f"{dev_ms['bwd']:.4f} call_ms {call_ms['bwd']:.4f} bound_ms "
+        f"{bounds['bwd'][0]:.4f} {3 * n / dev_ms['bwd'] / 1e6:.0f} GB/s | "
+        f"plain_ms {bplain:.4f}")
+    f, b = (summary["fused_double_affine_leaky"],
+            summary["fused_double_affine_leaky_bwd"])
+    if not fp32:
+        f["bf16_ms"] += n_step * dev_ms["fwd"]
+        f["bf16_call_ms"] += n_step * call_ms["fwd"]
+        f["bf16_bound_ms"] += n_step * bounds["fwd"][0]
+        b["bf16_ms"] += n_step * dev_ms["bwd_z"]
+        b["bf16_call_ms"] += n_step * call_ms["bwd_z"]
+        b["bf16_bound_ms"] += n_step * bounds["bwd_z"][0]
+        return
+    f["ms"] += n_step * dev_ms["fwd"]
+    f["call_ms"] += n_step * call_ms["fwd"]
+    f["plain_ms"] += n_step * plain
+    f["bound_ms"] += n_step * bounds["fwd"][0]
+    f["ms_per_served_forward"] += n_served * dev_ms["fwd"]
+    f["max_abs_err"] = max(f["max_abs_err"], err)
+    b["ms"] += n_step * dev_ms["bwd_z"]
+    b["call_ms"] += n_step * call_ms["bwd_z"]
+    b["plain_ms"] += n_step * bplain
+    b["bound_ms"] += n_step * bounds["bwd_z"][0]
+    b["no_z_ms"] += n_step * dev_ms["bwd"]
+    b["no_z_call_ms"] += n_step * call_ms["bwd"]
+    b["no_z_bound_ms"] += n_step * bounds["bwd"][0]
+    b["max_abs_err"] = max(b["max_abs_err"], err_dx, err_v)
 
 
 def resblock_shapes(gcfg):
@@ -848,13 +945,14 @@ def train():
             k2.launches = k1.launches = k1b.launches = 0  # main path
             metrics = [step(state, te, *batch) for _ in range(TRAIN_STEPS)]
             counts = (k2.launches, k1.launches, k1b.launches)  # ends here
-            # per step: K2 at each DFBlock its _supported takes; K1 and
-            # K1 bwd at every DFBlock (K2's backward recomputes h with K1)
+            # per step: K2 at each DFBlock its _supported takes, K1 at the
+            # others; K1 bwd at every DFBlock (K2's backward runs it with z
+            # for h, and no K1)
             shapes = dfblock_shapes(cfg.generator)
             n_k2 = sum(fused_modconv._supported(
                 torch.empty(3, 3, cin, cout, device="meta"))
                 for _, cin, cout in shapes)
-            want = (n_k2 * TRAIN_STEPS, len(shapes) * TRAIN_STEPS,
+            want = (n_k2 * TRAIN_STEPS, (len(shapes) - n_k2) * TRAIN_STEPS,
                     len(shapes) * TRAIN_STEPS)
             log(f"[train] launches over {TRAIN_STEPS} steps: K2 {counts[0]}, "
                 f"K1 {counts[1]}, K1 bwd {counts[2]} (want {want})")
@@ -1159,9 +1257,9 @@ def train_entry_phase(root: str, bare_img_s: float):
     saved_b = _snapshot(state_to_dict(tr_b1.state))
     hist_b2, counts_b2, wall_b2, out_b2, tr_b2 = run("b", 2)
 
-    # counters: per step one K2 per DFBlock K2 takes, one K1 and one K1
-    # bwd per DFBlock (14, 14, 14 at 256px); per eval batch (one test
-    # batch each epoch) a generator forward (14 K2, 0 K1 at 256px)
+    # counters: per step one K2 per DFBlock K2 takes and one K1 per other
+    # DFBlock, one K1 bwd per DFBlock (14, 0, 14 at 256px); per eval batch
+    # (one test batch each epoch) a generator forward (14 K2, 0 K1)
     shapes = dfblock_shapes(tr_a.cfg.generator)
     n_k2 = sum(fused_modconv._supported(
         torch.empty(3, 3, cin, cout, device="meta")) for _, cin, cout in shapes)
@@ -1169,7 +1267,7 @@ def train_entry_phase(root: str, bare_img_s: float):
     totals = [0, 0, 0]
     for counts, epochs in ((counts_a, 2), (counts_b1, 1), (counts_b2, 1)):
         steps = epochs * steps_per_epoch
-        want = (n_k2 * (steps + epochs), n_df * steps + (n_df - n_k2) * epochs,
+        want = (n_k2 * (steps + epochs), (n_df - n_k2) * (steps + epochs),
                 n_df * steps)
         if counts != want:
             raise AssertionError(f"train-entry launch counters {counts} != "
@@ -1332,12 +1430,13 @@ def main() -> int:
                  "shapes_per_call": s["path_shapes"]}
         if name == "fused_resblock_g":
             by_path["kernel_checks"] = k3_checks
-        for extra in ("bwd_ms", "plain_bwd_ms", "ms_per_served_forward",
+        for extra in ("call_ms", "no_z_ms", "no_z_call_ms", "no_z_bound_ms",
+                      "bwd_ms", "plain_bwd_ms", "ms_per_served_forward",
                       "bound_ms_fp32_cuda_cores", "drift_vs_float64",
                       "cudnn_drift_vs_float64", "composition_ms",
                       "bf16_ms", "bf16_plain_ms", "bf16_library_ms",
                       "bf16_bound_ms", "bf16_max_abs_err",
-                      "bf16_composition_ms"):
+                      "bf16_composition_ms", "bf16_call_ms"):
             if extra in s:
                 entry[extra] = s[extra]
         kernels.append(entry)

@@ -23,10 +23,11 @@ A CPU tensor takes the plain PyTorch version below, `reference_modconv3x3`;
 a CUDA tensor launches the kernels or raises.
 
 `fused_modconv3x3` is a `torch.autograd.Function`. Its backward keeps K2's
-design of never writing h to memory in the forward: it saves x, recomputes
-h with K1's forward, takes dh, dw and dbias from the convolution's gradient
-(`torch.nn.grad`, as the JAX backward is XLA's), then dx, dg1, db1, dg2 and
-db2 from K1's backward kernel.
+design of never writing h to memory in the forward: it saves x, takes dh
+from the convolution's input gradient (`torch.nn.grad`, as the JAX
+backward is XLA's), then dx, dg1, db1, dg2 and db2 from one launch of K1's
+backward kernel, which also writes h (its z) from the chain it rebuilds,
+and last dw from the convolution's weight gradient of that h, and dbias.
 """
 from __future__ import annotations
 
@@ -261,8 +262,8 @@ def _forward(x, g1, b1, g2, b2, w, bias) -> torch.Tensor:
 
 
 class _FusedModConv3x3(torch.autograd.Function):
-    """Forward K2; backward K1 fwd (recompute h), the conv gradient, K1
-    bwd."""
+    """Forward K2; backward the conv's input gradient, then K1 bwd, which
+    also gives h for the conv's weight gradient."""
 
     @staticmethod
     def forward(ctx, x, g1, b1, g2, b2, w, bias):
@@ -273,22 +274,23 @@ class _FusedModConv3x3(torch.autograd.Function):
     def backward(ctx, dy):
         x, g1, b1, g2, b2, w = ctx.saved_tensors
         dy = dy.contiguous()
-        h = fused_affine._forward(x, g1, b1, g2, b2)
         w_oihw = w.permute(3, 2, 0, 1)
         dy_nchw = dy.permute(0, 3, 1, 2)
         dh = torch.nn.grad.conv2d_input(
             (x.shape[0], x.shape[3], x.shape[1], x.shape[2]), w_oihw,
             dy_nchw, padding=1).permute(0, 2, 3, 1).contiguous()
+        want_dw = ctx.needs_input_grad[5]
+        grads = fused_affine.fused_double_affine_leaky_bwd(
+            x, g1, b1, g2, b2, dh, want_z=want_dw)
+        del dh
         dw = dbias = None
-        if ctx.needs_input_grad[5]:
+        if want_dw:  # grads[5] is h
             dw = torch.nn.grad.conv2d_weight(
-                h.permute(0, 3, 1, 2), w_oihw.shape, dy_nchw,
+                grads[5].permute(0, 3, 1, 2), w_oihw.shape, dy_nchw,
                 padding=1).permute(2, 3, 1, 0)
         if ctx.needs_input_grad[6]:
             dbias = dy.sum(dim=(0, 1, 2))
-        dx, dg1, db1, dg2, db2 = fused_affine.fused_double_affine_leaky_bwd(
-            x, g1, b1, g2, b2, dh)
-        return dx, dg1, db1, dg2, db2, dw, dbias
+        return (*grads[:5], dw, dbias)
 
 
 def fused_modconv3x3(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
@@ -300,7 +302,7 @@ def fused_modconv3x3(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
     CUDA tensors must be `_supported` and contiguous (w may be any strided
     view: it is packed once per forward), and run the kernels
     (each forward launch adds one to `fused_modconv3x3.launches`; the
-    backward launches K1 and K1 bwd, and counts on their counters)."""
+    backward launches K1 bwd, with h, and counts on its counter)."""
     _check(x, g1, b1, g2, b2, w, bias)
     return _FusedModConv3x3.apply(x, g1, b1, g2, b2, w, bias)
 

@@ -13,8 +13,9 @@ its graph is kept, phases 1 and 2 see it detached, and phase 3 takes the
 gradient of its loss with respect to the fake images alone (no D parameter
 gradient is formed), then runs G's backward from that gradient. D is
 updated in place between the phases; G's graph holds nothing of D's. G's
-backward runs through the kernels' backward: K2's (K1 forward to recompute
-the modulation, the conv gradient, K1 bwd) and K1 bwd, on every DFBlock.
+backward runs through the kernels' backward: K2's (the conv's input
+gradient, K1 bwd, which also rebuilds the modulation for the conv's weight
+gradient) and K1 bwd, on every DFBlock.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
-K1 forward and backward, K2 forward and its weight pack, K3 forward, and
-the gradients of the kernels' autograd Functions against the plain
-versions' autograd.
+K1 forward and backward (one launch, with z), K2 forward and its weight
+pack, K3 forward, and the gradients of the kernels' autograd Functions
+against the plain versions' autograd.
 
 Every test here is marked `cuda` and skips without a CUDA device. On a
 machine with one (and nvcc), with or without JAX installed:
@@ -121,26 +121,35 @@ class TestKernelsOnCard:
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("shape", [(2, 48, 48, 8), (3, 5, 7, 6),
-                                       (2, 16, 16, 256), (1, 3, 5, 2048)])
+                                       (2, 16, 16, 256), (1, 3, 5, 2048),
+                                       (2, 64, 64, 32), (8, 16, 16, 2048)])
     def test_k1_bwd(self, cuda, dtype, shape):
-        """Many pixel tiles, the scalar path (C = 6), the vector path, and
-        more channel vectors than threads (C = 2048 fp32). dx rounds where
-        the plain version rounds; the four sums add in another order:
-        fp32 dx allclose 1e-6, sums 1e-4; bf16 dx <= 2^-7 max|ref|, sums
-        <= 2^-6 max|ref|. The result repeats bit for bit."""
+        """Clusters of several blocks, the scalar path (C = 6), the vector
+        path, more channel vectors than a block row (C = 2048, several
+        channel chunks), and a pixel split that spans a full cluster of 16
+        blocks ([2, 64, 64, 32]). dx rounds where the plain version
+        rounds; the four sums add in another order: fp32 dx allclose 1e-6,
+        sums 1e-4; bf16 dx <= 2^-7 max|ref|, sums <= 2^-6 max|ref|. The
+        result repeats bit for bit, and z equals K1's forward bit for
+        bit."""
         x, *vecs = [torch.from_numpy(a).to(cuda, dtype)
                     for a in _k1_inputs(shape)]
         x[:, ::2] = 0  # exact zeros in y1 and y2 where b1 = b2 = 0
         vecs[1][:, ::2] = 0
         vecs[3][:, ::2] = 0
         dy = torch.randn(shape, device=cuda).to(dtype)
+        if shape == (2, 64, 64, 32):
+            assert fused_affine._plan(2, 64 * 64, 32, dtype).split == 16
         before = fused_affine.fused_double_affine_leaky_bwd.launches
         got = fused_affine.fused_double_affine_leaky_bwd(x, *vecs, dy)
-        again = fused_affine.fused_double_affine_leaky_bwd(x, *vecs, dy)
+        again = fused_affine.fused_double_affine_leaky_bwd(x, *vecs, dy,
+                                                           want_z=True)
         want = fused_affine.reference_double_affine_leaky_bwd(x, *vecs, dy)
+        fwd = fused_affine.fused_double_affine_leaky(x, *vecs)
         torch.cuda.synchronize()
         assert fused_affine.fused_double_affine_leaky_bwd.launches \
             == before + 2
+        assert torch.equal(again[5], fwd)
         for i, (g, a, w) in enumerate(zip(got, again, want)):
             assert torch.equal(g, a)
             if dtype == torch.float32:
@@ -151,12 +160,39 @@ class TestKernelsOnCard:
                 top = w.float().abs().max().item()
                 assert err <= 2.0 ** (-7 if i == 0 else -6) * top
 
+    @pytest.mark.parametrize("want_z", [False, True])
+    def test_k1_bwd_is_one_kernel_and_no_scratch(self, cuda, want_z):
+        """One call of K1 bwd is one CUDA kernel in a torch.profiler trace,
+        and allocates only its outputs: dx, the [4, B, C] gradients, and z
+        where it is asked for."""
+        from torch.profiler import ProfilerActivity, profile
+
+        x, *vecs = [torch.from_numpy(a).to(cuda)
+                    for a in _k1_inputs((8, 32, 32, 256))]
+        dy = torch.randn_like(x)
+        fused_affine.fused_double_affine_leaky_bwd(x, *vecs, dy,
+                                                   want_z=want_z)
+        torch.cuda.synchronize()
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fused_affine.fused_double_affine_leaky_bwd(
+                x, *vecs, dy, want_z=want_z)
+            torch.cuda.synchronize()
+        made = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and "fused_affine_bwd" in kernels[0]
+        assert made == (3 if want_z else 2)
+        assert len(out) == (6 if want_z else 5)
+
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("kernel", ["k1", "k2"])
     def test_gradients_reach_the_inputs(self, cuda, dtype, kernel):
         """Inputs that require grad give an output with a grad_fn; one
-        backward launches K1 bwd once (and, for K2, K1's forward once to
-        recompute h); the gradients match the plain versions' autograd:
+        backward launches K1 bwd once (for K2, with z, and no K1 forward:
+        K1 bwd's z is h for the weight gradient); the gradients match the
+        plain versions' autograd:
         fp32 (TF32 off) allclose 1e-4, bf16 max|err| <= 2^-6 max|ref|."""
         if kernel == "k1":
             arrays = _k1_inputs((2, 16, 16, 64))
@@ -181,7 +217,7 @@ class TestKernelsOnCard:
         torch.cuda.synchronize()
         moved = [k1.launches - counts[0], k1_bwd.launches - counts[1],
                  k2.launches - counts[2]]
-        assert moved == ([1, 1, 0] if kernel == "k1" else [1, 1, 1])
+        assert moved == ([1, 1, 0] if kernel == "k1" else [0, 1, 1])
         for t, w in zip(ins, ref_ins):
             if dtype == torch.float32:
                 torch.testing.assert_close(t.grad, w.grad, atol=1e-4,

@@ -15,8 +15,8 @@ import pytest
 import torch
 
 from gan_codes_tpu.ops.pallas.fused_affine import (
-    fused_double_affine_leaky as jax_k1, reference_double_affine_leaky as
-    jax_k1_ref)
+    _fwd as jax_k1_fwd, fused_double_affine_leaky as jax_k1,
+    reference_double_affine_leaky as jax_k1_ref)
 from gan_codes_tpu.ops.pallas.fused_modconv import (
     _xla_composition as jax_k2_ref, fused_modconv3x3 as jax_k2)
 from gan_codes_tpu_torch.config import GeneratorConfig
@@ -76,6 +76,140 @@ class TestK1Plain:
                 x.double(), *(v.double() for v in (g1, b1, g2, b2)))
         with pytest.raises(ValueError, match=r"\[B, H, W, C\]"):
             fused_affine.fused_double_affine_leaky(x[0], g1, b1, g2, b2)
+
+
+# (H = W, C) of the DFBlock inputs of the 256px generator (n_channels 32):
+# its 14 DFBlocks have these 10 distinct shapes
+K1_SHAPES = [(4, 256), (8, 256), (16, 256), (32, 256), (64, 256), (64, 128),
+             (128, 128), (128, 64), (256, 64), (256, 32)]
+
+
+def _k1_coverage(plan, b, hw, c):
+    """How often the kernels' index map (csrc/fused_affine.cu, `plan_walk`)
+    visits each (pixel, channel) of sample 0, and how many threads of the
+    grid have at least one pixel. Blocks are (sample * chunks + chunk) *
+    split + s; thread t takes channel vector chunk * lanes + t % lanes and
+    pixels s * ppb + t // lanes + k * rows below min((s + 1) * ppb, hw)."""
+    nvc = c // plan.vec
+    counts = np.zeros((hw, nvc), np.int64)
+    busy = 0
+    blocks = np.arange(plan.blocks(b))
+    s_of, grp = blocks % plan.split, blocks // plan.split
+    sample, chunk = grp // plan.chunks, grp % plan.chunks
+    # every (sample, chunk) has `split` blocks, s = 0 .. split - 1
+    pairs = np.stack([sample, chunk, s_of], 1)
+    assert len(np.unique(pairs, axis=0)) == len(blocks)
+    assert sample.max() == b - 1 and chunk.max() == plan.chunks - 1
+    t = np.arange(plan.threads)
+    lane, row = t % plan.lanes, t // plan.lanes
+    for blk in blocks[sample == 0]:
+        s, ch = s_of[blk], chunk[blk]
+        cv = ch * plan.lanes + lane
+        p0 = s * plan.ppb + row
+        p1 = min((s + 1) * plan.ppb, hw)
+        n = np.where((cv < nvc) & (p0 < p1), -(-(p1 - p0) // plan.rows), 0)
+        busy += int((n > 0).sum())
+        for k in range(int(n.max()) if n.size else 0):
+            take = n > k
+            np.add.at(counts, (p0[take] + k * plan.rows, cv[take]), 1)
+    return counts, busy * b
+
+
+class TestK1Layout:
+    """The host side of the CUDA kernels: `_plan`, the streaming layout both
+    K1 kernels walk."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("batch", [8, 24])
+    @pytest.mark.parametrize("h,w,c", [(s, s, c) for s, c in K1_SHAPES]
+                             + [(5, 7, 6), (5, 7, 2048), (5, 7, 32),
+                                (1, 2, 6), (16, 16, 2048)])
+    def test_plan_covers_each_pixel_and_channel_once(self, dtype, batch, h,
+                                                     w, c):
+        """Every (pixel, channel vector) of a sample exactly once, the grid
+        decoding to every (sample, chunk, split rank) once; 16-byte vectors
+        where C allows them (all 10 shapes), single elements otherwise
+        (C = 6); at most 16 blocks per cluster, 32-1024 threads a block."""
+        hw = h * w
+        plan = fused_affine._plan(batch, hw, c, dtype)
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        assert plan.vec == (16 // itemsize if c % (16 // itemsize) == 0
+                            else 1)
+        assert 1 <= plan.split <= fused_affine.MAX_SPLIT
+        assert 32 <= plan.threads <= fused_affine.MAX_THREADS[dtype]
+        assert plan.lanes & (plan.lanes - 1) == 0 and plan.lanes <= 32
+        assert plan.rows & (plan.rows - 1) == 0
+        counts, _ = _k1_coverage(plan, batch, hw, c)
+        assert counts.shape == (hw, c // plan.vec)
+        assert (counts == 1).all()
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("batch", [8, 24])
+    def test_plan_fills_the_card_where_the_map_has_the_work(self, dtype,
+                                                            batch):
+        """At every DFBlock input of the 256px generator: where the map has
+        at least FILL_BLOCKS x MAX_THREADS (128 x 512 in fp32, 128 x 256 in
+        bf16) 16-byte vectors, at least 128 blocks of MAX_THREADS, every
+        thread with pixels of its own; on the large maps a thread walks at
+        least 16 pixels (4096 pixels and more) and every cluster has 16
+        blocks (16384 and more); on any map, no thread of a full block is
+        without a pixel."""
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        threads = fused_affine.MAX_THREADS[dtype]
+        fill = fused_affine.FILL_BLOCKS * threads
+        for hw, c in K1_SHAPES:
+            plan = fused_affine._plan(batch, hw * hw, c, dtype)
+            work = batch * hw * hw * c * itemsize // 16
+            _, busy = _k1_coverage(plan, batch, hw * hw, c)
+            assert plan.rows <= plan.ppb
+            if work >= fill:
+                assert plan.threads == threads, (hw, c)
+                assert plan.blocks(batch) >= fused_affine.FILL_BLOCKS
+                assert busy == plan.blocks(batch) * plan.threads, (hw, c)
+            if hw * hw >= 4096:
+                assert plan.ppb // plan.rows >= 16, (hw, c, plan)
+            if hw * hw >= 16384:
+                assert plan.split == 16, (hw, c, plan)
+
+    def test_unaligned_pointers_take_single_elements(self):
+        plan = fused_affine._plan(8, 64, 256, torch.float32, aligned=False)
+        assert plan.vec == 1
+        counts, _ = _k1_coverage(plan, 8, 64, 256)
+        assert (counts == 1).all()
+
+
+class TestK1BackwardWithZ:
+    """The plain backward's z: the forward's output, from the backward's
+    own y2."""
+
+    @pytest.mark.parametrize("shape", [(2, 8, 8, 16), (3, 5, 7, 6),
+                                       (1, 4, 4, 32)])
+    def test_z_equals_the_forward_and_the_jax_kernel(self, shape):
+        """z == `reference_double_affine_leaky` bit for bit (fp32 and
+        bf16), and the JAX `_fwd` Pallas kernel (interpret mode) within
+        1e-6 as TestK1Plain holds the forward; the five gradients are the
+        ones the backward gives without z."""
+        args = _k1_inputs(shape, seed=2)
+        dy = np.random.default_rng(3).standard_normal(shape).astype(
+            np.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            ts = [torch.from_numpy(a).to(dtype) for a in args + [dy]]
+            got = fused_affine.fused_double_affine_leaky_bwd(*ts,
+                                                             want_z=True)
+            assert len(got) == 6
+            fwd = fused_affine.reference_double_affine_leaky(*ts[:5])
+            assert torch.equal(got[5], fwd)
+            plain = fused_affine.reference_double_affine_leaky_bwd(*ts)
+            assert len(plain) == 5
+            for g, w in zip(got[:5], plain):
+                assert torch.equal(g, w)
+        b, h, w, c = shape
+        want = np.asarray(jax_k1_fwd(
+            jnp.asarray(args[0]).reshape(b, h * w, c),
+            *map(jnp.asarray, args[1:]))).reshape(shape)
+        z = fused_affine.fused_double_affine_leaky_bwd(
+            *map(torch.from_numpy, args + [dy]), want_z=True)[5]
+        np.testing.assert_allclose(z.numpy(), want, atol=1e-6, rtol=0)
 
 
 class TestK2Plain:

@@ -25,7 +25,8 @@ from gan_codes_tpu.models.text_encoder import (init_text_encoder,
                                                text_encoder_apply)
 from gan_codes_tpu.ops import blocks as jblocks
 from gan_codes_tpu.ops.pallas.fused_affine import (
-    _pick_tile, fused_double_affine_leaky as jax_k1)
+    _fwd as jax_k1_fwd, _pick_tile, _vjp_bwd as jax_k1_vjp_bwd,
+    fused_double_affine_leaky as jax_k1)
 from gan_codes_tpu.ops.pallas.fused_modconv import fused_modconv3x3 as jax_k2
 from gan_codes_tpu.train import losses as jlosses
 from gan_codes_tpu.train import state as jstate
@@ -107,6 +108,28 @@ class TestK1Backward:
             (dy * vecs[2][:, None, None, :] * vecs[0][:, None, None, :]
              )[:, ::2, ::2, ::2])
 
+    @pytest.mark.parametrize("shape", [(2, 48, 48, 8), (3, 4, 4, 16),
+                                       (2, 5, 7, 6)])
+    def test_plain_bwd_with_z_matches_jax_vjp_bwd_and_fwd(self, shape):
+        """The plain backward with z against the JAX custom VJP's backward
+        `_vjp_bwd` (its Pallas `_bwd_call`, interpret mode) and z against
+        the Pallas `_fwd`: fp32 allclose 1e-5 for dx and the four sums,
+        1e-6 for z; exact zeros in y1 and y2 as above."""
+        x, vecs, dy = _k1_case(shape, seed=4)
+        jx, jvecs = jnp.asarray(x), [jnp.asarray(v) for v in vecs]
+        want = [np.asarray(t) for t in
+                jax_k1_vjp_bwd((jx, *jvecs), jnp.asarray(dy))]
+        b, h, w, c = shape
+        want_z = np.asarray(jax_k1_fwd(jx.reshape(b, h * w, c), *jvecs)
+                            ).reshape(shape)
+        got = fused_affine.fused_double_affine_leaky_bwd(
+            T(x), *map(T, vecs), T(dy), want_z=True)
+        assert len(got) == 6
+        for g, w_ in zip(got[:5], want):
+            np.testing.assert_allclose(g.numpy(), w_, atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(got[5].numpy(), want_z, atol=1e-6,
+                                   rtol=0)
+
     def test_bf16_against_fp32(self):
         """bf16 through the plain backward against fp32 on the same
         (bf16-rounded) inputs. The slope steps at y == 0, so x is redrawn
@@ -180,20 +203,51 @@ class TestK2Gradient:
                                        atol=1e-4, rtol=1e-4)
 
     def test_backward_recomputes_h_with_k1_and_uses_k1_bwd(self):
-        """K2's backward saves x, not h: it calls K1's forward once and
-        K1's backward once."""
+        """K2's backward saves x, not h: one K1 bwd call rebuilds h (its z)
+        for the weight gradient, and no K1 forward runs; without a weight
+        gradient to take, it asks for no z."""
         rng = np.random.default_rng(3)
-        ins = [T(rng.standard_normal(s).astype(np.float32)).requires_grad_()
-               for s in [(1, 4, 4, 8)] + [(1, 8)] * 4 + [(3, 3, 8, 64),
-                                                         (64,)]]
-        out = fused_modconv.fused_modconv3x3(*ins)
-        with mock.patch.object(fused_affine, "_forward",
-                               wraps=fused_affine._forward) as fwd, \
-                mock.patch.object(
-                    fused_affine, "fused_double_affine_leaky_bwd",
-                    wraps=fused_affine.fused_double_affine_leaky_bwd) as bwd:
-            out.sum().backward()
-        assert fwd.call_count == 1 and bwd.call_count == 1
+        shapes = [(1, 4, 4, 8)] + [(1, 8)] * 4 + [(3, 3, 8, 64), (64,)]
+        for w_grad in (True, False):
+            ins = [T(rng.standard_normal(s).astype(np.float32)
+                     ).requires_grad_(w_grad or i != 5)
+                   for i, s in enumerate(shapes)]
+            out = fused_modconv.fused_modconv3x3(*ins)
+            with mock.patch.object(fused_affine, "_forward",
+                                   wraps=fused_affine._forward) as fwd, \
+                    mock.patch.object(
+                        fused_affine, "fused_double_affine_leaky_bwd",
+                        wraps=fused_affine.fused_double_affine_leaky_bwd
+                    ) as bwd:
+                out.sum().backward()
+            assert fwd.call_count == 0 and bwd.call_count == 1
+            assert bwd.call_args.kwargs["want_z"] is w_grad
+            assert (ins[5].grad is not None) is w_grad
+
+    @pytest.mark.parametrize("dims", [(2, 32, 32, 8, 32), (1, 32, 32, 6, 64)])
+    def test_reordered_backward_matches_jax_vjp_at_32px(self, dims):
+        """The backward (dgrad, then K1 bwd with z, then wgrad from z) at a
+        32 x 32 map, the 32px generator's last DFBlock size, against
+        `jax.vjp` of the JAX `fused_modconv3x3` (its Pallas forward in
+        interpret mode, its plain backward) for one seeded cotangent: all
+        seven gradients, atol/rtol 1e-4."""
+        b, h, w, cin, cout = dims
+        rng = np.random.default_rng(5)
+        x = rng.standard_normal((b, h, w, cin)).astype(np.float32)
+        vecs = [rng.standard_normal((b, cin)).astype(np.float32)
+                for _ in range(4)]
+        bound = (9 * cin) ** -0.5
+        wt = rng.uniform(-bound, bound, (3, 3, cin, cout)).astype(np.float32)
+        bias = rng.uniform(-bound, bound, (cout,)).astype(np.float32)
+        ct = rng.standard_normal((b, h, w, cout)).astype(np.float32)
+        args = [x] + vecs + [wt, bias]
+        _, vjp = jax.vjp(jax_k2, *map(jnp.asarray, args))
+        want = vjp(jnp.asarray(ct))
+        ins = [T(a).requires_grad_(True) for a in args]
+        fused_modconv.fused_modconv3x3(*ins).backward(T(ct))
+        for t, w_ in zip(ins, want):
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(w_),
+                                       atol=1e-4, rtol=1e-4)
 
 
 D_CFG = jcfg.DiscriminatorConfig(n_channels=4, image_size=32,
