@@ -7,9 +7,9 @@ Run from the root of the repository, on a machine with one NVIDIA H100:
 
 Phases (any failed check raises, so the run exits non-zero):
 
-1. Build: compiles every kernel source in `gan_codes_tpu_torch/csrc/` with
-   one nvcc call for sm_90a into one library, prints the build seconds and
-   the card's name and power limit.
+1. Build: compiles every kernel source in `gan_codes_tpu_torch/csrc/` for
+   sm_90a, one nvcc per source started together, then links them into one
+   library; prints the build seconds and the card's name and power limit.
 2. Kernels: calls each kernel's wrapper on the card at the shapes the main
    paths give it (batch 8): K2 at every DFBlock its `_supported` takes (all
    14 of the 256px generator), K1 bwd at the input of every DFBlock of a
@@ -26,10 +26,13 @@ Phases (any failed check raises, so the run exits non-zero):
    backward (its autograd Function) against the plain composition's
    autograd backward. K3 (`fused_resblock_g`, on no model path) runs at
    the 7 residual-block shapes of the 256px generator, batch 8, in both
-   dtypes, against its plain version, with its time beside the port's
-   current way to compute a block (`composition_ms`: K2, or K1 and cuDNN,
-   per DFBlock, the cuDNN 1x1 shortcut, the residual add), and its backward
-   (fp32) against the plain composition's autograd.
+   dtypes, against its plain version and a second call bit for bit, with
+   its time beside the port's current way to compute a block
+   (`composition_ms`: K2, or K1 and cuDNN, per DFBlock, the cuDNN 1x1
+   shortcut, the residual add) and its bound by route (3xTF32 on the TF32
+   tensor cores in fp32, the bf16 tensor cores in bf16), its `_plan`
+   (tile, N tile, ring, conv1's share), and its backward (fp32) against
+   the plain composition's autograd.
 3. Serve: writes seeded random full-width weights (256px, n_channels=32,
    vocab 5450, embed 300, hidden 256, every block gamma != 0) as
    reference-format `gen_1.pth` + `text_encoder.pth` + `captions.pickle`,
@@ -125,9 +128,10 @@ H100_TF32_TENSOR_FLOPS = 495e12  # dense tensor cores; K2's fp32 runs
 #   blocks in rank order): fp32 allclose(1e-4), bf16 <= 2^-6 * max|ref|;
 #   a second call, and the call without z, equal it bit for bit; z equals
 #   K1's output bit for bit.
-#   K3 chains two convs, each summed in another order than cuDNN: fp32
-#   allclose(2e-4, 2e-4); bf16 rounds h1 and h2 to bf16, so each conv may
-#   flip one ulp: max|err| <= 2^-5 * max|ref|. Its backward (fp32) against
+#   K3 chains two convs, each summed in another order than cuDNN (fp32 as
+#   3xTF32): fp32 allclose(2e-4, 2e-4); bf16 rounds h1 and h2 to bf16, so
+#   each conv may flip one ulp: max|err| <= 2^-5 * max|ref|. A second call
+#   equals the first bit for bit (no atomics). Its backward (fp32) against
 #   the plain composition's autograd: max|err| <= 1e-3 * max|ref| per input.
 #   The served image (phase 3, fp32) passes 14 DFBlocks, each reordered:
 #   allclose(1e-3, 1e-3).
@@ -505,10 +509,11 @@ def resblock_shapes(gcfg):
 def check_resblock(gcfg):
     """Phase 2, K3: `fused_resblock_g` at every residual-block shape of the
     generator, batch 8, fp32 (TF32 off) and bf16, against its plain
-    version; its time beside the plain version's and the composition's
-    (the port's current way to compute the block); its fp32 backward
-    against the plain composition's autograd. Returns the summary entry
-    and the number of K3 launches the phase made."""
+    version and a second call bit for bit; its time beside the plain
+    version's, the composition's (the port's current way to compute the
+    block) and its bound by route; its fp32 backward against the plain
+    composition's autograd. Returns the summary entry and the number of K3
+    launches the phase made."""
     import torch
 
     from gan_codes_tpu_torch.ops.kernels import fused_resblock as fr
@@ -521,8 +526,9 @@ def check_resblock(gcfg):
              replaces="gan_codes_tpu/ops/pallas/fused_resblock.py:157",
              ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
              composition_ms=0.0, max_abs_err=0.0, bound_by="operations",
-             bwd_ms=0.0, plain_bwd_ms=0.0, bf16_ms=0.0,
+             bwd_ms=0.0, plain_bwd_ms=0.0, bf16_ms=0.0, bf16_plain_ms=0.0,
              bf16_composition_ms=0.0, bf16_bound_ms=0.0,
+             bf16_max_abs_err=0.0, bound_ms_fp32_cuda_cores=0.0,
              per="7-block set (one 256px generator forward's blocks)",
              path_shapes=len(gcfg.block_channels))
 
@@ -534,7 +540,6 @@ def check_resblock(gcfg):
         fp32 = dtype == torch.float32
         name = "fp32" if fp32 else "bf16"
         esize = 4 if fp32 else 2
-        peak = H100_FP32_FLOPS if fp32 else H100_BF16_TENSOR_FLOPS
         for hw, cin, cout in resblock_shapes(gcfg):
             sc = cin != cout
             args = ([rand(B, hw, hw, cin, dtype=dtype)]
@@ -553,10 +558,15 @@ def check_resblock(gcfg):
                         rand(cout, dtype=dtype, scale=0.1)] if sc
                        else [None, None]))
             out = fr.fused_resblock_g(*args)
+            again = fr.fused_resblock_g(*args)
             ref = fr.reference_resblock_g(*args)
             torch.cuda.synchronize()
             err = _held(f"K3 {name} {(B, hw, hw, cin, cout)}", out, ref,
                         fp32, 2e-4, -5)
+            if not torch.equal(out, again):
+                raise AssertionError(f"K3 {name} {(B, hw, hw, cin, cout)}: "
+                                     "a second call differs")
+            plan = fr._plan(B, hw, hw, cin, cout, dtype, sc)
             top = ref.float().abs().max().item()
             iters = 5 if hw >= 128 else 10
             with torch.no_grad():
@@ -568,17 +578,29 @@ def check_resblock(gcfg):
                 + B * hw * hw * cout * esize
             flops = 2.0 * B * hw * hw * cout * (9 * cin + 9 * cout
                                                 + (cin if sc else 0))
-            b_ms, b_by = bound(n_bytes, flops, peak)
+            # fp32: 3xTF32 runs three TF32 tensor-core products a product
+            b_ms, b_by = (bound(n_bytes, 3 * flops, H100_TF32_TENSOR_FLOPS)
+                          if fp32 else
+                          bound(n_bytes, flops, H100_BF16_TENSOR_FLOPS))
             log(f"[kernels] K3 {name} x[{B},{hw},{hw},{cin}] -> {cout}"
                 f"{' +1x1' if sc else ''}: max_abs_err {err:.3g} "
-                f"max_rel_err {err / top:.3g} | kernel_ms {ms:.4f} plain_ms "
-                f"{plain:.4f} composition_ms {comp:.4f} bound_ms "
-                f"{b_ms:.4f} ({b_by}) | {flops / ms / 1e9:.1f} TFLOP/s")
+                f"max_rel_err {err / top:.3g}, second call bit-equal | "
+                f"kernel_ms {ms:.4f} plain_ms {plain:.4f} composition_ms "
+                f"{comp:.4f} bound_ms {b_ms:.4f} ({b_by}) | "
+                f"{flops / ms / 1e9:.1f} TFLOP/s | plan: tile "
+                f"{plan.th}x{plan.tw}, N {plan.nt * 32} x {plan.n_tiles}, "
+                f"{plan.blocks} blocks, m64 tiles {plan.m1}+{plan.m2}, "
+                f"{plan.stages} stages, {plan.smem} B shared, conv1 share "
+                f"{plan.conv1_share:.3f}")
             if not fp32:
                 s["bf16_ms"] += ms
+                s["bf16_plain_ms"] += plain
                 s["bf16_composition_ms"] += comp
                 s["bf16_bound_ms"] += b_ms
+                s["bf16_max_abs_err"] = max(s["bf16_max_abs_err"], err)
                 continue
+            s["bound_ms_fp32_cuda_cores"] += bound(n_bytes, flops,
+                                                   H100_FP32_FLOPS)[0]
             s["ms"] += ms
             s["plain_ms"] += plain
             s["composition_ms"] += comp
@@ -617,9 +639,11 @@ def check_resblock(gcfg):
             del ins, leaves, out, ref, got, want
     log(f"[kernels] K3 per 7-block set: fp32 kernel_ms {s['ms']:.3f} "
         f"plain_ms {s['plain_ms']:.3f} composition_ms "
-        f"{s['composition_ms']:.3f} bound_ms {s['bound_ms']:.3f}; bf16 "
-        f"kernel_ms {s['bf16_ms']:.3f} composition_ms "
-        f"{s['bf16_composition_ms']:.3f} bound_ms {s['bf16_bound_ms']:.4f}")
+        f"{s['composition_ms']:.3f} bound_ms {s['bound_ms']:.3f} (3xTF32; "
+        f"{s['bound_ms_fp32_cuda_cores']:.3f} on the fp32 CUDA cores); bf16 "
+        f"kernel_ms {s['bf16_ms']:.3f} plain_ms {s['bf16_plain_ms']:.3f} "
+        f"composition_ms {s['bf16_composition_ms']:.3f} bound_ms "
+        f"{s['bf16_bound_ms']:.4f}")
     return s, fr.fused_resblock_g.launches - before
 
 
@@ -1373,7 +1397,8 @@ def main() -> int:
     serving_device("cuda")  # TF32 off for the fp32 plain versions too
     t0 = time.perf_counter()
     _build.build()
-    log(f"[build] one nvcc call, sm_90a, {len(_build.SOURCES)} sources -> "
+    log(f"[build] sm_90a, {len(_build.SOURCES)} sources, one nvcc each in "
+        f"parallel, then a link -> "
         f"{_build.library_path().name}: {time.perf_counter() - t0:.2f}s")
     smi = nvidia_smi_line()
     log(f"[device] {smi}; torch {torch.__version__} cuda "

@@ -1,7 +1,7 @@
 // Fused double affine modulation + LeakyReLU (kernel K1), forward and
 // backward, sm_90a.
 //
-//   out = lrelu(g2 * lrelu(g1 * x + b1) + b2),  slope 0.2
+//   out = lrelu(g2 * lrelu(g1 * x + b1) + b2),  slope 0.2 rounded to T
 //   x, out [B, H, W, C] (NHWC, contiguous); g1, b1, g2, b2 [B, C].
 //
 // Replaces: the Pallas TPU kernels of gan_codes_tpu/ops/pallas/fused_affine.py
@@ -140,67 +140,9 @@ __device__ __forceinline__ Vecs<T, VEC> load_vecs(
   return v;
 }
 
-// bf16 pairs: the 16-byte vector of 8 bf16 channels as 4 words of two,
-// channel 2j in the low half of word j. mul and add are Hopper's native
-// bf16x2 ops, rounded to nearest: a bf16 product or sum computed in fp32 and
-// rounded to bf16 (common.cuh's mul_t, and the plain version) is the same
-// number, as fp32 has more than 2 * 8 + 2 significant bits. The slope
-// multiplies in fp32 by 0.2f and rounds, as mul_t does. Half the
-// instructions of the fp32 emulation, and no unpacked copies of g and b.
-namespace bf2 {
-
-// the 16-byte vector path of bf16 takes these helpers
-template <typename T, int VEC>
-constexpr bool kPacked = sizeof(T) == 2 && VEC == 8;
-
-__device__ __forceinline__ uint32_t mul(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
-__device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
-__device__ __forceinline__ float lo(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-
-__device__ __forceinline__ float hi(uint32_t w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-
-// {lo, hi} rounded to nearest into one word, lo in the low half
-__device__ __forceinline__ uint32_t pack(float l, float h) {
-  uint32_t d;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(h), "f"(l));
-  return d;
-}
-
-__device__ __forceinline__ uint32_t slope(uint32_t y) {
-  return pack(__fmul_rn(lo(y), kSlope), __fmul_rn(hi(y), kSlope));
-}
-
-// 0xffff in each half where y < 0 (not -0): the slope applies there, as
-// the y >= 0 test leaves it
-__device__ __forceinline__ uint32_t neg_mask(uint32_t y) {
-  const uint32_t nonzero = (y & 0x7fff7fffu) + 0x7fff7fffu;
-  return ((y & nonzero & 0x80008000u) >> 15) * 0xffffu;
-}
-
-__device__ __forceinline__ uint32_t select(uint32_t pos, uint32_t neg,
-                                           uint32_t m) {
-  return (pos & ~m) | (neg & m);
-}
-
-__device__ __forceinline__ const uint32_t* words(const void* p) {
-  return reinterpret_cast<const uint32_t*>(p);
-}
-
-}  // namespace bf2
+// bf16 pairs: common.cuh's gct::bf2, Hopper's native bf16x2 ops on the
+// 16-byte vector of 8 bf16 channels as 4 words of two.
+namespace bf2 = gct::bf2;
 
 template <typename T, int VEC>
 __device__ __forceinline__ Pack<T, VEC> fwd_pack(const Pack<T, VEC>& in,
@@ -305,14 +247,15 @@ __device__ __forceinline__ void bwd_pack(const Pack<T, VEC>& xin,
       const float y1 =
           rt<T>(__fadd_rn(mul_t<T>(g1, xv), to_f<T>(p.b1.v[k])));
       const bool pos1 = y1 >= 0.f;
-      const float h = pos1 ? y1 : mul_t<T>(y1, kSlope);
+      const float h = pos1 ? y1 : mul_t<T>(y1, kSlope<T>);
       const float y2 =
           rt<T>(__fadd_rn(mul_t<T>(g2, h), to_f<T>(p.b2.v[k])));
       const bool pos2 = y2 >= 0.f;
-      if (WANT_Z) zr.v[k] = from_f<T>(pos2 ? y2 : mul_t<T>(y2, kSlope));
-      const float dy2 = pos2 ? dv : mul_t<T>(dv, kSlope);
+      if (WANT_Z)
+        zr.v[k] = from_f<T>(pos2 ? y2 : mul_t<T>(y2, kSlope<T>));
+      const float dy2 = pos2 ? dv : mul_t<T>(dv, kSlope<T>);
       const float dh = mul_t<T>(dy2, g2);
-      const float dy1 = pos1 ? dh : mul_t<T>(dh, kSlope);
+      const float dy1 = pos1 ? dh : mul_t<T>(dh, kSlope<T>);
       d.v[k] = from_f<T>(mul_t<T>(dy1, g1));
       acc[k] += mul_t<T>(dy1, xv);
       acc[VEC + k] += dy1;

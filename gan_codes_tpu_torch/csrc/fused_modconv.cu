@@ -1,7 +1,7 @@
 // Fused double affine modulation + LeakyReLU -> SAME 3x3 conv (kernel K2,
 // forward), sm_90a: an implicit GEMM on the tensor cores through wgmma.
 //
-//   h   = lrelu(g2 * lrelu(g1 * x + b1) + b2)           (slope 0.2)
+//   h   = lrelu(g2 * lrelu(g1 * x + b1) + b2)    (slope 0.2 rounded to T)
 //   out = conv3x3_same(h, w) + bias                     (fp32 accumulation)
 //   x [B, H, W, Cin] NHWC; g*, b* [B, Cin]; w [3, 3, Cin, Cout] HWIO at any
 //   strides; bias [Cout]; out [B, H, W, Cout]; one dtype, all but w
@@ -21,7 +21,8 @@
 // before, 1.68 ms).
 //
 // Design, M = output pixels, N = Cout, K = 9 taps x Cin; a block computes
-// one 64 x N output tile over a range of K:
+// one 64 x N output tile over a range of K (the PTX wrappers, operand
+// chunking and A-chunk stores are in wgmma.cuh, shared with K3):
 //   * wgmma, fp32 sums in registers, one instruction as wide as the N tile
 //     (32-256). bf16: m64nNk16.f32.bf16.bf16. fp32: 3xTF32, m64nNk8.f32.
 //     tf32.tf32 on split operands v = hi + lo, hi = cvt.rna.tf32(v), lo =
@@ -67,14 +68,11 @@
 
 #include <algorithm>
 
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-using gct::from_f;
-using gct::mod_chain;
-using gct::rt;
-using gct::to_f;
+using namespace gct;
 
 constexpr int TILE_W = 8;                 // output tile columns
 constexpr int HALO = TILE_W + 2;          // halo pitch (pixels)
@@ -89,241 +87,11 @@ constexpr int kMaxStages = 16;
 constexpr int kRingBytes = 48 * 1024;
 constexpr int kBarBytes = 2 * kMaxStages * 8;
 
-template <typename T> struct Op;
-template <> struct Op<__nv_bfloat16> {
-  static constexpr int KC = 16;     // channels per wgmma k step (k16)
-  static constexpr int PARTS = 1;   // operand planes
-};
-template <> struct Op<float> {
-  static constexpr int KC = 8;      // wgmma k8 (tf32)
-  static constexpr int PARTS = 2;   // hi, lo
-};
-
-// k steps per K chunk. Longer chunks mean fewer synchronisations per
-// product: as many as keep a chunk's modulated halo within 12.8 KB and one
-// tap's weight stage within 8 KB, one at least, and one for N = 32, whose
-// Cin of 32-64 then still spans several chunks, so that each chunk's
-// modulation overlaps the previous chunk's products (measured faster)
-__host__ __device__ constexpr int ks_of(int parts, int nt) {
-  return nt == 1 ? 1
-         : 4 / parts < 8 / (parts * nt)
-             ? 4 / parts
-             : (8 / (parts * nt) < 1 ? 1 : 8 / (parts * nt));
-}
-
-template <typename T>
-struct alignas(16) V16 {
-  T v[16 / sizeof(T)];
-};
-
-// ---- PTX wrappers --------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
 __device__ __forceinline__ void wg_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kWG) : "memory");
 }
 
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Pins the accumulators at this point of the program: the compiler may not
-// move their reads or writes across it (wgmma writes them asynchronously).
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Shared-memory matrix descriptor, no swizzle: start address, the byte
-// offset between the two core-matrix columns along K (lbo) and between
-// 8-row core-matrix groups along M or N (sbo), all in 16-byte units.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
-}
-
-#define GCT_D8(i)                                                        \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define GCT_D16(i) GCT_D8(i), GCT_D8(i + 8)
-#define GCT_D32(i) GCT_D16(i), GCT_D16(i + 16)
-#define GCT_D64(i) GCT_D32(i), GCT_D32(i + 32)
-#define GCT_D128(i) GCT_D64(i), GCT_D64(i + 64)
-
-// d[64 x N] += A[64 x 16] * B[16 x N], bf16, both K-major in shared memory
-// (da, db), fp32 sums in registers in wgmma's accumulator layout
-template <int N>
-__device__ void mma_bf16(float (&d)[N / 2], uint64_t da, uint64_t db);
-// d[64 x N] += A[64 x 8] * B[8 x N], tf32, both K-major in shared memory
-// (N up to 128: the fp32 N tile)
-template <int N>
-__device__ void mma_tf32(float (&d)[N / 2], uint64_t da, uint64_t db);
-
-template <>
-__device__ __forceinline__ void mma_bf16<32>(float (&d)[16], uint64_t da,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : GCT_D16(0)
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void mma_tf32<32>(float (&d)[16], uint64_t da,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1;\n}\n"
-      : GCT_D16(0)
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void mma_bf16<64>(float (&d)[32], uint64_t da,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : GCT_D32(0)
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void mma_tf32<64>(float (&d)[32], uint64_t da,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1;\n}\n"
-      : GCT_D32(0)
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void mma_bf16<128>(float (&d)[64], uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : GCT_D64(0)
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void mma_tf32<128>(float (&d)[64], uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1;\n}\n"
-      : GCT_D64(0)
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void mma_bf16<256>(float (&d)[128], uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
-      : GCT_D128(0)
-      : "l"(da), "l"(db), "r"(1));
-}
-
-#undef GCT_D8
-#undef GCT_D16
-#undef GCT_D32
-#undef GCT_D64
-#undef GCT_D128
-
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// ---- the halo: raw loads, modulation --------------------------------------
+// ---- the halo --------------------------------------------------------------
 
 // Halo pixel px of the tile at stacked row R0, column C0 -> its
 // sample and global pixel index, or s = -1 in the padding, the rows
@@ -341,79 +109,6 @@ __device__ __forceinline__ void halo_pixel(int px, int R0, int C0, int H,
   if (h == H) return;
   s = smp;
   pix = ((long long)smp * H + h) * W + C;
-}
-
-// The element-by-element path of load16 (a Cin that is not a multiple of
-// the vector width, or a misaligned array), out of line: it is rare, and
-// inlined in every unrolled item it would bloat the kernel's code.
-template <typename T>
-__device__ __noinline__ V16<T> load_elements(const T* __restrict__ a,
-                                             long long row, int c, int Cin) {
-  V16<T> r;
-  for (int e = 0; e < 16 / (int)sizeof(T); ++e)
-    r.v[e] = (row >= 0 && c + e < Cin) ? a[row * Cin + c + e]
-                                       : from_f<T>(0.f);
-  return r;
-}
-
-// 16 bytes of channels [c, c + VEC) of row `row` of each of the N [rows,
-// Cin] arrays a[0..N): 0 past Cin and for row < 0. The 16-byte path issues
-// all N loads before any use (one memory latency) from an address that is
-// always valid, and zeroes the result after.
-template <typename T, int N>
-__device__ __forceinline__ void load16(const T* const (&a)[N], long long row,
-                                       int c, int Cin, bool vec_ok,
-                                       V16<T> (&r)[N]) {
-  if (vec_ok) {
-    const bool ok = row >= 0 && c < Cin;
-    const long long off = ok ? row * Cin + c : 0;
-    uint4 u[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-      u[i] = __ldg(reinterpret_cast<const uint4*>(a[i] + off));
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-      *reinterpret_cast<uint4*>(&r[i]) = ok ? u[i] : make_uint4(0, 0, 0, 0);
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < N; ++i) r[i] = load_elements(a[i], row, c, Cin);
-}
-
-// Modulate one 16-byte vector of the halo (x, and g1, b1, g2, b2 of its
-// sample s) and store it as the wgmma operand: T for bf16; tf32 hi and lo
-// planes, lo_off bytes apart, for fp32.
-template <typename T>
-__device__ __forceinline__ void mod_store(const V16<T>& raw,
-                                          const V16<T> (&m)[4], int s, int c,
-                                          int Cin, unsigned char* dst,
-                                          int lo_off) {
-  constexpr int VEC = 16 / sizeof(T);
-  float v[VEC];
-#pragma unroll
-  for (int e = 0; e < VEC; ++e)
-    v[e] = (s >= 0 && c + e < Cin)
-               ? mod_chain<T>(to_f<T>(raw.v[e]), to_f<T>(m[0].v[e]),
-                              to_f<T>(m[1].v[e]), to_f<T>(m[2].v[e]),
-                              to_f<T>(m[3].v[e]))
-               : 0.f;
-  if constexpr (Op<T>::PARTS == 1) {
-    V16<T> o;
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) o.v[e] = from_f<T>(v[e]);
-    *reinterpret_cast<V16<T>*>(dst) = o;
-  } else {
-    uint4 hi, lo;
-    uint32_t* h = reinterpret_cast<uint32_t*>(&hi);
-    uint32_t* l = reinterpret_cast<uint32_t*>(&lo);
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      h[e] = tf32_rna(v[e]);
-      l[e] = tf32_rna(v[e] - __uint_as_float(h[e]));
-    }
-    *reinterpret_cast<uint4*>(dst) = hi;
-    *reinterpret_cast<uint4*>(dst + lo_off) = lo;
-  }
 }
 
 // The epilogue rounding: the fp32 sum rounded to T, then + bias in T.
@@ -728,27 +423,28 @@ fused_modconv3x3_splitk_reduce_kernel(const float* __restrict__ ws,
   }
 }
 
-// The weight pack: w [3, 3, Cin, Cout] (element strides s0..s3, any
-// layout: the HWIO view of a torch OIHW weight needs no copy) -> the
-// stages the kernel streams, [n tile][chunk][tap][k step][part][N / 8][2]
-// [8][KC / 2], zero past Cin and Cout; part = (w,) in bf16, (hi, lo) = the
-// tf32 split in fp32. One block per (n tile, chunk, tap, k step), its
-// threads writing the step's N x KC elements of each part in order.
+// The weight pack: w [kh, kw, Cin, Cout] (3 x 3, or 1 x 1: taps = kh * kw;
+// element strides s0..s3, any layout: the HWIO view of a torch OIHW weight
+// needs no copy) -> the stages the kernels stream, [n tile][chunk][tap]
+// [k step][part][N / 8][2][8][KC / 2], zero past Cin and Cout; part = (w,)
+// in bf16, (hi, lo) = the tf32 split in fp32. One block per (n tile, chunk,
+// tap, k step), its threads writing the step's N x KC elements of each part
+// in order.
 template <typename T>
 __global__ void __launch_bounds__(256)
 fused_modconv3x3_pack_kernel(const T* __restrict__ w, long long s0,
                              long long s1, long long s2, long long s3,
-                             int Cin, int Cout, int n_chunks, int ks,
-                             int ntile, T* __restrict__ packed) {
+                             int taps, int Cin, int Cout, int n_chunks,
+                             int ks, int ntile, T* __restrict__ packed) {
   constexpr int KC = Op<T>::KC;
   constexpr int KT = KC / 2;
   constexpr int PARTS = Op<T>::PARTS;
-  const int step = blockIdx.x;  // ((n tile * n_chunks + chunk) * 9 + tap)
-                                // * ks + k step
+  const int step = blockIdx.x;  // ((n tile * n_chunks + chunk) * taps +
+                                // tap) * ks + k step
   const int kq = step % ks;
-  const int tap = (step / ks) % 9;
-  const int chunk = (step / ks / 9) % n_chunks;
-  const int nt = step / ks / 9 / n_chunks;
+  const int tap = (step / ks) % taps;
+  const int chunk = (step / ks / taps) % n_chunks;
+  const int nt = step / ks / taps / n_chunks;
   const int ci0 = (chunk * ks + kq) * KC;
   const int co0 = nt * ntile;
   const T* src = w + (tap / 3) * s0 + (tap % 3) * s1;
@@ -855,40 +551,43 @@ bool aligned16(const void* p) {
 }
 
 template <typename T>
-int pack(const void* w, const long long* st, void* packed, int Cin,
-         int Cout, int nt, int n_tiles, cudaStream_t stream) {
-  const int ks = ks_of(Op<T>::PARTS, nt);
+int pack(const void* w, const long long* st, void* packed, int taps,
+         int Cin, int Cout, int nt, int ks, int n_tiles,
+         cudaStream_t stream) {
   const int n_chunks = (Cin + ks * Op<T>::KC - 1) / (ks * Op<T>::KC);
-  const long long steps = (long long)n_tiles * n_chunks * 9 * ks;
+  const long long steps = (long long)n_tiles * n_chunks * taps * ks;
   if (steps > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   fused_modconv3x3_pack_kernel<T><<<(unsigned)steps, 256, 0, stream>>>(
-      static_cast<const T*>(w), st[0], st[1], st[2], st[3], Cin, Cout,
+      static_cast<const T*>(w), st[0], st[1], st[2], st[3], taps, Cin, Cout,
       n_chunks, ks, nt * 32, static_cast<T*>(packed));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The weight pack (dtype 0 = float32, 1 = bfloat16): w [3, 3, Cin, Cout]
-// at element strides w_strides[0..4) -> packed, the n_tiles N tiles of
-// nt * 32 channels, the Cin chunks of 16 (bf16) or 8 (fp32) channels and
-// the 9 taps of the kernel's weight stages (ops/kernels/fused_modconv.py:
+// The weight pack (dtype 0 = float32, 1 = bfloat16): w [kh, kw, Cin,
+// Cout], taps = kh * kw = 9 (3 x 3) or 1 (1 x 1), at element strides
+// w_strides[0..4) -> packed, the n_tiles N tiles of nt * 32 channels, the
+// Cin chunks of ks k steps of 16 (bf16) or 8 (fp32) channels and the taps
+// of the kernels' weight stages (ops/kernels/fused_modconv.py:
 // _pack_weights is its plain version). Returns cudaGetLastError().
 extern "C" int gct_fused_modconv3x3_pack(const void* w,
                                          const long long* w_strides,
-                                         void* packed, int Cin, int Cout,
-                                         int nt, int n_tiles, int dtype,
+                                         void* packed, int taps, int Cin,
+                                         int Cout, int nt, int ks,
+                                         int n_tiles, int dtype,
                                          void* stream) {
-  if (Cin <= 0 || Cout <= 0 || n_tiles <= 0 ||
-      (nt != 1 && nt != 2 && nt != 4 && nt != 8) ||
+  if (Cin <= 0 || Cout <= 0 || n_tiles <= 0 || (taps != 9 && taps != 1) ||
+      (nt != 1 && nt != 2 && nt != 4 && nt != 8) || ks < 1 || ks > 4 ||
       (long long)n_tiles * nt * 32 < Cout)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return pack<float>(w, w_strides, packed, Cin, Cout, nt, n_tiles, s);
+    return pack<float>(w, w_strides, packed, taps, Cin, Cout, nt, ks,
+                       n_tiles, s);
   if (dtype == 1)
-    return pack<__nv_bfloat16>(w, w_strides, packed, Cin, Cout, nt, n_tiles,
-                               s);
+    return pack<__nv_bfloat16>(w, w_strides, packed, taps, Cin, Cout, nt,
+                               ks, n_tiles, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -920,8 +619,10 @@ extern "C" int gct_fused_modconv3x3_fwd(
     return (int)cudaErrorInvalidValue;
   if (!aligned16(out) || !aligned16(scratch))
     return (int)cudaErrorMisalignedAddress;
-  int rc = gct_fused_modconv3x3_pack(w, w_strides, scratch, Cin, Cout, nt,
-                                     n_tiles, dtype, stream);
+  const int ks = ks_of(dtype == 0 ? Op<float>::PARTS
+                                  : Op<__nv_bfloat16>::PARTS, nt);
+  int rc = gct_fused_modconv3x3_pack(w, w_strides, scratch, 9, Cin, Cout,
+                                     nt, ks, n_tiles, dtype, stream);
   if (rc != 0) return rc;
   // the packed weights: n_tiles x chunks x 9 taps x kc x nt * 32, x2 fp32
   const long long pack_bytes =

@@ -34,7 +34,7 @@ class Discriminator(nn.Module):
         self.img_sentence_forward = nn.Sequential(
             nn.Conv2d(cfg.embed_channels + cfg.sentence_dim,
                       cfg.n_channels * 2, 3, padding=1, bias=False),
-            nn.LeakyReLU(0.2),
+            ops_nn.LeakyReLU(),
             nn.Conv2d(cfg.n_channels * 2, 1, cfg.final_size, bias=False))
 
     def embeds(self, image: torch.Tensor) -> torch.Tensor:

@@ -34,7 +34,7 @@ class Generator(nn.Module):
             for i, o in ladder[:-1])
         self.res_block_out = ResidualBlockG(*ladder[-1], cfg.sentence_dim,
                                             cfg.affine_hidden)
-        self.conv_out = nn.Sequential(nn.LeakyReLU(0.2),
+        self.conv_out = nn.Sequential(ops_nn.LeakyReLU(),
                                       nn.Conv2d(cfg.n_channels, 3, 3,
                                                 padding=1),
                                       nn.Tanh())

@@ -85,9 +85,9 @@ class ResidualBlockD(nn.Module):
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
         self.residual_conv = nn.Sequential(
-            nn.Conv2d(in_ch, out_ch, 4, 2, 1, bias=False), nn.LeakyReLU(0.2),
+            nn.Conv2d(in_ch, out_ch, 4, 2, 1, bias=False), ops_nn.LeakyReLU(),
             nn.Conv2d(out_ch, out_ch, 3, 1, 1, bias=False),
-            nn.LeakyReLU(0.2))
+            ops_nn.LeakyReLU())
         self.scale_conv = (nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch
                            else None)
         self.gamma = nn.Parameter(torch.zeros(1))

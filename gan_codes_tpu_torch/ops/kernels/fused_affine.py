@@ -1,7 +1,8 @@
 """Kernel K1: fused double affine modulation + LeakyReLU, forward and
 backward.
 
-    out = lrelu(g2 * lrelu(g1 * x + b1) + b2)      slope 0.2
+    out = lrelu(g2 * lrelu(g1 * x + b1) + b2)      slope 0.2 rounded to x's
+                                                   dtype (`nn.neg_slope`)
     x [B, H, W, C] NHWC; g1, b1, g2, b2 [B, C]; float32 or bfloat16.
 
 The hot elementwise chain of every generator DFBlock
@@ -34,8 +35,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from . import _build
-
-NEG_SLOPE = 0.2
+from ..nn import neg_slope
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # threads of a block (csrc: kMaxThreads), two blocks an SM: bf16's fp32
 # sums of 8 channels a thread need twice the registers of fp32's 4
@@ -51,10 +51,11 @@ def reference_double_affine_leaky(x: torch.Tensor, g1: torch.Tensor,
                                   b2: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version, in x's dtype (the math of the JAX package's
     `reference_double_affine_leaky`)."""
+    s = neg_slope(x.dtype)
     y1 = g1[:, None, None, :] * x + b1[:, None, None, :]
-    h = torch.where(y1 >= 0, y1, y1 * NEG_SLOPE)
+    h = torch.where(y1 >= 0, y1, y1 * s)
     y2 = g2[:, None, None, :] * h + b2[:, None, None, :]
-    return torch.where(y2 >= 0, y2, y2 * NEG_SLOPE)
+    return torch.where(y2 >= 0, y2, y2 * s)
 
 
 def reference_double_affine_leaky_bwd(
@@ -70,13 +71,14 @@ def reference_double_affine_leaky_bwd(
     at y == 0 exactly (where `F.leaky_relu`'s backward gives 0.2). The four
     [B, C] gradients add the products over H x W in fp32 and round once to
     x's dtype (the TPU kernel adds its tile sums in x's dtype)."""
+    s = neg_slope(x.dtype)
     y1 = g1[:, None, None, :] * x + b1[:, None, None, :]
     pos1 = y1 >= 0
-    h = torch.where(pos1, y1, y1 * NEG_SLOPE)
+    h = torch.where(pos1, y1, y1 * s)
     y2 = g2[:, None, None, :] * h + b2[:, None, None, :]
-    dy2 = torch.where(y2 >= 0, dy, dy * NEG_SLOPE)
+    dy2 = torch.where(y2 >= 0, dy, dy * s)
     dh = dy2 * g2[:, None, None, :]
-    dy1 = torch.where(pos1, dh, dh * NEG_SLOPE)
+    dy1 = torch.where(pos1, dh, dh * s)
     dx = dy1 * g1[:, None, None, :]
 
     def hw_sum(t):
@@ -84,7 +86,7 @@ def reference_double_affine_leaky_bwd(
 
     grads = (dx, hw_sum(dy1 * x), hw_sum(dy1), hw_sum(dy2 * h), hw_sum(dy2))
     if want_z:
-        return grads + (torch.where(y2 >= 0, y2, y2 * NEG_SLOPE),)
+        return grads + (torch.where(y2 >= 0, y2, y2 * s),)
     return grads
 
 

@@ -127,33 +127,34 @@ def tf32_split(v: torch.Tensor):
     return hi, rna(v - hi)
 
 
-def _packed_shape(plan: Plan, parts: int):
+def _packed_shape(plan: Plan, parts: int, taps: int = 9):
     ntile = plan.nt * COUT_STEP
-    return (plan.n_tiles, plan.chunks, 9, plan.ks, parts, ntile // 8, 2, 8,
-            plan.kc // 2)
+    return (plan.n_tiles, plan.chunks, taps, plan.ks, parts, ntile // 8, 2,
+            8, plan.kc // 2)
 
 
 def _pack_weights(w: torch.Tensor, plan: Plan) -> torch.Tensor:
-    """w [3, 3, Cin, Cout] HWIO (any strides) -> the kernel's weight stages,
-    zero-padded to chunks * ks * kc input and n_tiles * nt * 32 output
-    channels: [n tile][chunk][tap][k step][part][N / 8][2][8][kc / 2],
-    part = (w,) in bf16 and (hi, lo) in fp32. One stage (chunk, tap) holds
-    the B operands of ks wgmma k steps: 8-row core matrices of 16 bytes (8
-    output channels x kc / 2 input channels), the two K columns 128 bytes
-    apart and the 8-row groups 256 bytes apart."""
-    cin, cout = w.shape[2], w.shape[3]
+    """w [3, 3, Cin, Cout] HWIO, or a 1x1 [1, 1, Cin, Cout] (any strides)
+    -> the kernels' weight stages, zero-padded to chunks * ks * kc input
+    and n_tiles * nt * 32 output channels: [n tile][chunk][tap][k step]
+    [part][N / 8][2][8][kc / 2], part = (w,) in bf16 and (hi, lo) in fp32.
+    One stage (chunk, tap) holds the B operands of ks wgmma k steps: 8-row
+    core matrices of 16 bytes (8 output channels x kc / 2 input channels),
+    the two K columns 128 bytes apart and the 8-row groups 256 bytes
+    apart."""
+    kh, kw, cin, cout = w.shape
     kt = plan.kc // 2
     ntile = plan.nt * COUT_STEP
     cin_p = plan.chunks * plan.ks * plan.kc
     cout_p = plan.n_tiles * ntile
     if (cin_p, cout_p) != (cin, cout):
-        padded = w.new_zeros((3, 3, cin_p, cout_p))
+        padded = w.new_zeros((kh, kw, cin_p, cout_p))
         padded[:, :, :cin, :cout] = w
         w = padded
-    w = w.reshape(9, plan.chunks, plan.ks, 2, kt, plan.n_tiles, ntile // 8,
-                  8)
+    w = w.reshape(kh * kw, plan.chunks, plan.ks, 2, kt, plan.n_tiles,
+                  ntile // 8, 8)
     parts = tf32_split(w) if w.dtype == torch.float32 else (w,)
-    packed = w.new_empty(_packed_shape(plan, len(parts)))
+    packed = w.new_empty(_packed_shape(plan, len(parts), kh * kw))
     for i, part in enumerate(parts):
         # (tap, chunk, ks, kb, kt, ntile, nb, r)
         #   -> (ntile, chunk, tap, ks, nb, kb, r, kt)
@@ -171,7 +172,7 @@ def _lib():
         lib = _build.load()
         pack, fwd = lib.gct_fused_modconv3x3_pack, lib.gct_fused_modconv3x3_fwd
         pack.argtypes = ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
-                          ctypes.c_void_p] + [ctypes.c_int] * 5
+                          ctypes.c_void_p] + [ctypes.c_int] * 7
                          + [ctypes.c_void_p])
         fwd.argtypes = ([ctypes.c_void_p] * 6
                         + [ctypes.POINTER(ctypes.c_longlong)]
@@ -189,12 +190,14 @@ def pack_weights(w: torch.Tensor, plan: Plan) -> torch.Tensor:
     if w.device.type == "cpu":
         return _pack_weights(w, plan)
     parts = 2 if w.dtype == torch.float32 else 1
-    packed = torch.empty(_packed_shape(plan, parts), dtype=w.dtype,
+    taps = w.shape[0] * w.shape[1]
+    packed = torch.empty(_packed_shape(plan, parts, taps), dtype=w.dtype,
                          device=w.device)
     strides = (ctypes.c_longlong * 4)(*w.stride())
     with torch.cuda.device(w.device):
-        rc = _lib()[0](w.data_ptr(), strides, packed.data_ptr(), w.shape[2],
-                       w.shape[3], plan.nt, plan.n_tiles, _DTYPES[w.dtype],
+        rc = _lib()[0](w.data_ptr(), strides, packed.data_ptr(), taps,
+                       w.shape[2], w.shape[3], plan.nt, plan.ks,
+                       plan.n_tiles, _DTYPES[w.dtype],
                        torch.cuda.current_stream(w.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_modconv3x3 weight pack: CUDA error {rc} "

@@ -12,10 +12,14 @@ which permutes back to a contiguous NHWC tensor.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+NEG_SLOPE = 0.2
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor,
@@ -39,8 +43,31 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
     return y.contiguous()
 
 
-def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
-    return F.leaky_relu(x, negative_slope)
+@functools.lru_cache(maxsize=None)
+def neg_slope(dtype: torch.dtype) -> torch.Tensor:
+    """NEG_SLOPE rounded to `dtype`, as a 0-d CPU tensor: JAX multiplies by
+    a weak-typed Python scalar, which takes the array's dtype, so its bf16
+    slope is bf16(0.2) = 0.2001953125. A bf16 tensor times this 0-d bf16
+    tensor is JAX's bf16 product (the exact fp32 product rounded once);
+    times the Python float 0.2 it would be the fp32 product by 0.2f
+    rounded, another number in about one negative input in five. In fp32
+    both are 0.2f."""
+    return torch.tensor(NEG_SLOPE, dtype=dtype)
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """jnp.where(x >= 0, x, x * 0.2) in x's dtype, as the JAX package's
+    `leaky_relu`: the slope rounded to x's dtype (`neg_slope`), and a
+    gradient of 1 at x == 0, where `F.leaky_relu`'s gives 0.2."""
+    return torch.where(x >= 0, x, x * neg_slope(x.dtype))
+
+
+class LeakyReLU(nn.Module):
+    """`leaky_relu` as a module without parameters, in the `Sequential`s
+    that keep the reference's state_dict indexes."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return leaky_relu(x)
 
 
 def avg_pool2d(x: torch.Tensor, window: int = 2) -> torch.Tensor:

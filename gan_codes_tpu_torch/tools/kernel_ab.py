@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The DFBlock kernels of several trees, timed on one card: K2
-(`fused_modconv3x3`, forward) and K1 (`fused_double_affine_leaky` and its
-backward) as a train step runs them.
+"""The generator kernels of several trees, timed on one card: K2
+(`fused_modconv3x3`, forward), K1 (`fused_double_affine_leaky` and its
+backward) as a train step runs them, and K3 (`fused_resblock_g`, forward).
 
     python3 gan_codes_tpu_torch/tools/kernel_ab.py PARENT . . PARENT
 
@@ -33,6 +33,15 @@ events. The sum over the 14 DFBlocks is the per-step K1 device time. At
 4x4 to 32x32 the same calls also run eagerly back to back (CUDA events):
 `call_ms`, and `host_ms` = call_ms - device ms, the wrappers' host cost.
 
+K3: its `fused_resblock_g` at the 7 residual blocks of the 256px generator,
+batch 8, float32 (TF32 off) and bfloat16, checked against its own plain
+version (fp32 allclose 2e-4; bf16 max|err| <= 2^-5 max|ref|) and timed
+with CUDA events around eager calls (mean of 5 calls after 2 warm ones, 10
+below 64x64), with the composition beside it (`_composition`: the port's
+way to compute the block from K2, cuDNN's 1x1 and torch ops) and the bound
+by route (fp32: 3xTF32, three products a product, over 495 TFLOP/s; bf16:
+over 989 TFLOP/s).
+
 Prints the card's name and power limit, then one JSON line per run and a
 summary line. Exits non-zero if a build, a launch or a check fails.
 """
@@ -49,6 +58,8 @@ K1_BATCHES = (8, 24)
 GRAPH_CALLS = 20
 CALL_MAX_HW = 32           # K1's eager call time at 4x4 to 32x32
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+TF32_FLOPS = 495e12        # dense tensor cores, H100 SXM data sheet
+BF16_FLOPS = 989e12
 
 
 def shapes():
@@ -239,19 +250,80 @@ def run_k1(root, torch, fused_affine) -> dict:
     return result
 
 
+def resblock_shapes():
+    """(H, Cin, Cout) of the 7 residual blocks of the 256px generator."""
+    ladder = [(256, 256)] * 4 + [(256, 128), (128, 64), (64, 32)]
+    return [(4 * 2 ** i, cin, cout) for i, (cin, cout) in enumerate(ladder)]
+
+
+def run_k3(root, torch, fused_resblock) -> dict:
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4567)
+    fr = fused_resblock
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        fp32 = dtype == torch.float32
+        name = "fp32" if fp32 else "bf16"
+
+        def rand(*shape, scale=1.0):
+            return (torch.randn(*shape, device=dev, generator=gen)
+                    * scale).to(dtype)
+
+        rows = []
+        for hw, cin, cout in resblock_shapes():
+            sc = cin != cout
+            b = K2_BATCH
+            args = ([rand(b, hw, hw, cin)]
+                    + [rand(b, cin, scale=0.5) for _ in range(4)]
+                    + [rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5),
+                       rand(cout, scale=0.1)]
+                    + [rand(b, cout, scale=0.5) for _ in range(4)]
+                    + [rand(3, 3, cout, cout, scale=(9 * cout) ** -0.5),
+                       rand(cout, scale=0.1),
+                       torch.full((1,), 0.7, device=dev, dtype=dtype)]
+                    + ([rand(1, 1, cin, cout, scale=cin ** -0.5),
+                        rand(cout, scale=0.1)] if sc else [None, None]))
+            with torch.no_grad():
+                out = fr.fused_resblock_g(*args)
+                ref = fr.reference_resblock_g(*args)
+                err = _held(f"{root} K3 {name} {(hw, cin, cout)}", out, ref,
+                            fp32, 2e-4, -5)
+                del out, ref
+                iters = 5 if hw >= 64 else 10
+                ms = cuda_ms(lambda: fr.fused_resblock_g(*args), iters)
+                comp = cuda_ms(lambda: fr._composition(*args), iters)
+            flops = 2.0 * b * hw * hw * cout * (9 * cin + 9 * cout
+                                                + (cin if sc else 0))
+            bound = (3 * flops / TF32_FLOPS if fp32
+                     else flops / BF16_FLOPS) * 1e3
+            rows.append({"shape": [b, hw, hw, cin, cout], "ms": ms,
+                         "composition_ms": comp, "bound_ms": bound,
+                         "max_abs_err": err})
+            del args
+            torch.cuda.empty_cache()
+        result[name] = {"shapes": rows,
+                        "ms_sum": sum(r["ms"] for r in rows),
+                        "composition_ms_sum": sum(r["composition_ms"]
+                                                  for r in rows),
+                        "bound_ms_sum": sum(r["bound_ms"] for r in rows)}
+    return result
+
+
 def run(root: str) -> dict:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
     import torch.nn.functional as F
 
-    from gan_codes_tpu_torch.ops.kernels import fused_affine, fused_modconv
+    from gan_codes_tpu_torch.ops.kernels import (fused_affine, fused_modconv,
+                                                 fused_resblock)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     result = {"root": root, "module": fused_modconv.__file__}
     result.update(run_k2(root, torch, F, fused_affine, fused_modconv))
     result["k1"] = run_k1(root, torch, fused_affine)
+    result["k3"] = run_k3(root, torch, fused_resblock)
     return result
 
 
@@ -292,7 +364,15 @@ def main(argv) -> int:
             + ("bwd with z" if k1["with_z"] else "fwd + bwd") + "): "
             + ", ".join(f"{key} {v['step_ms']:.4f} ms (bound "
                         f"{v['step_bound_ms']:.4f})"
-                        for key, v in k1.items() if key != "with_z"),
+                        for key, v in k1.items() if key != "with_z")
+            + "; K3 per 7-block set: " + ", ".join(
+                f"{d} {res['k3'][d]['ms_sum']:.4f} ms (composition "
+                f"{res['k3'][d]['composition_ms_sum']:.4f}, bound "
+                f"{res['k3'][d]['bound_ms_sum']:.4f}; per shape "
+                + " ".join(f"{r['shape'][1]}:{r['ms']:.4f}/"
+                           f"{r['composition_ms']:.4f}"
+                           for r in res["k3"][d]["shapes"]) + ")"
+                for d in ("fp32", "bf16")),
             flush=True)
     return 0
 

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
 K1 forward and backward (one launch, with z), K2 forward and its weight
-pack, K3 forward, and the gradients of the kernels' autograd Functions
-against the plain versions' autograd.
+pack, K3 forward (one kernel, bit for bit on a repeat), and the gradients
+of the kernels' autograd Functions against the plain versions' autograd.
 
 Every test here is marked `cuda` and skips without a CUDA device. On a
 machine with one (and nvcc), with or without JAX installed:
@@ -273,6 +273,64 @@ class TestResBlockOnCard:
         else:
             err = (got.float() - want.float()).abs().max().item()
             assert err <= 2.0 ** -5 * want.float().abs().max().item()
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("batch", [1, 5, 8])
+    def test_k3_at_the_256px_blocks(self, cuda, dtype, batch):
+        """The 7 residual blocks of the 256px generator (n_channels 32) at
+        batch 1, 5 (which breaks the sample stacking) and 8: against the
+        plain version (fp32 allclose 2e-4, bf16 max|err| <= 2^-5
+        max|ref|), and a second call equal bit for bit."""
+        from gan_codes_tpu_torch.config import GeneratorConfig
+        gcfg = GeneratorConfig()
+        for i, (cin, cout) in enumerate(gcfg.block_channels):
+            hw = gcfg.base_size * 2 ** i
+            args = [None if a is None else torch.from_numpy(a).to(cuda, dtype)
+                    for a in _k3_inputs(batch, hw, hw, cin, cout, cin != cout,
+                                        seed=i)]
+            got = fused_resblock.fused_resblock_g(*args)
+            again = fused_resblock.fused_resblock_g(*args)
+            want = fused_resblock.reference_resblock_g(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), (hw, cin, cout)
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+            else:
+                err = (got.float() - want.float()).abs().max().item()
+                assert err <= 2.0 ** -5 * want.float().abs().max().item()
+            del args, got, again, want
+
+    @pytest.mark.parametrize("shortcut", [False, True])
+    def test_k3_is_one_kernel_and_leaves_no_scratch(self, cuda, shortcut):
+        """One call launches K3's kernel once (after K2's pack kernel for
+        w1, w2 and ws; the profiler may miss the first of those), adds one
+        to its counter, and leaves only its output allocated: the packed
+        weights' scratch is freed. With shortcut, Cin == Cout and a 1x1
+        shortcut (which the plan must not take for an identity)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        cin = 256 if not shortcut else 128
+        args = [None if a is None else torch.from_numpy(a).to(cuda)
+                for a in _k3_inputs(8, 16, 16, cin, 128 if shortcut else 256,
+                                    shortcut)]
+        fused_resblock.fused_resblock_g(*args)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        launches = fused_resblock.fused_resblock_g.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fused_resblock.fused_resblock_g(*args)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert sum("fused_resblock_g_kernel" in k for k in kernels) == 1
+        # the rest are K2's pack kernel, one for each weight
+        assert all("pack_kernel" in k for k in kernels
+                   if "fused_resblock_g_kernel" not in k)
+        assert len(kernels) <= (4 if shortcut else 3)
+        assert fused_resblock.fused_resblock_g.launches == launches + 1
+        assert (torch.cuda.memory_allocated() - before
+                == out.numel() * out.element_size())
 
     @pytest.mark.parametrize("image_size", [32, 64, 128])
     def test_k3_takes_the_short_ladders(self, cuda, image_size):

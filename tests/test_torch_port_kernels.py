@@ -9,19 +9,23 @@ tests/test_torch_port_cuda.py holds them against these plain versions.
 """
 from unittest import mock
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from gan_codes_tpu.ops import nn as jnn
 from gan_codes_tpu.ops.pallas.fused_affine import (
-    _fwd as jax_k1_fwd, fused_double_affine_leaky as jax_k1,
+    NEG_SLOPE as jax_k1_neg_slope, _fwd as jax_k1_fwd,
+    _vjp_bwd as jax_k1_vjp_bwd, fused_double_affine_leaky as jax_k1,
     reference_double_affine_leaky as jax_k1_ref)
 from gan_codes_tpu.ops.pallas.fused_modconv import (
     _xla_composition as jax_k2_ref, fused_modconv3x3 as jax_k2)
 from gan_codes_tpu_torch.config import GeneratorConfig
 from gan_codes_tpu_torch.models.generator import Generator
 from gan_codes_tpu_torch.ops import blocks
+from gan_codes_tpu_torch.ops import nn as pnn
 from gan_codes_tpu_torch.ops.kernels import fused_affine, fused_modconv
 
 
@@ -359,3 +363,101 @@ class TestK2Layout:
                 assert p.chunks * p.ks * p.kc >= c
                 assert p.splits * p.cps >= p.chunks > (p.splits - 1) * p.cps
                 assert p.blocks >= 132 or p.cps == 1
+
+
+def _jnp_bwd_math(x, g1, b1, g2, b2, dy):
+    """dx and the forward's output by the math of the JAX package's
+    `_vjp_bwd` (`_bwd_kernel`), op by op in jnp: the masks are 1 or
+    NEG_SLOPE cast to x's dtype, so in bf16 the slope is bf16(0.2)."""
+    g1, b1, g2, b2 = (v[:, None, None, :] for v in (g1, b1, g2, b2))
+    y1 = g1 * x + b1
+    m1 = jnp.where(y1.astype(jnp.float32) >= 0, 1.0,
+                   jax_k1_neg_slope).astype(x.dtype)
+    h = y1 * m1
+    y2 = g2 * h + b2
+    m2 = jnp.where(y2.astype(jnp.float32) >= 0, 1.0,
+                   jax_k1_neg_slope).astype(x.dtype)
+    dx = dy * m2 * g2 * m1 * g1
+    return dx, y2 * m2
+
+
+class TestSlope:
+    """The LeakyReLU slope is 0.2 rounded to the compute dtype, as JAX
+    rounds its weak-typed scalar: in bf16 0.2001953125. Held bit for bit
+    against the jnp references in bf16 (the interpret-mode Pallas op rounds
+    otherwise), and in fp32, where both slopes are 0.2f."""
+
+    @pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])
+    def test_k1_forward_equals_the_jnp_reference(self, dtype):
+        args = _k1_inputs((2, 8, 8, 64), seed=11)
+        tdt = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+        got = fused_affine.reference_double_affine_leaky(
+            *(torch.from_numpy(a).to(tdt) for a in args))
+        want = jax_k1_ref(*(jnp.asarray(a).astype(dtype) for a in args))
+        assert torch.equal(got.float(),
+                           torch.from_numpy(np.asarray(want, np.float32)))
+
+    @pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])
+    def test_k1_backward_dx_and_z_equal_the_vjp_math(self, dtype):
+        """dx and z bit for bit; the four [B, C] sums within 2^-6 max|ref|
+        (bf16; fp32 1e-5): the port sums in fp32 and fp64, the TPU kernel
+        in x's dtype."""
+        args = _k1_inputs((2, 8, 8, 64), seed=12)
+        dy = np.random.default_rng(13).standard_normal(
+            (2, 8, 8, 64)).astype(np.float32)
+        tdt = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+        got = fused_affine.reference_double_affine_leaky_bwd(
+            *(torch.from_numpy(a).to(tdt) for a in args + [dy]),
+            want_z=True)
+        jargs = [jnp.asarray(a).astype(dtype) for a in args + [dy]]
+        dx, z = _jnp_bwd_math(*jargs)
+        for g, w in ((got[0], dx), (got[5], z)):
+            assert torch.equal(g.float(),
+                               torch.from_numpy(np.array(w, np.float32)))
+        want = jax_k1_vjp_bwd(tuple(jargs[:5]), jargs[5])
+        for g, w in zip(got[1:5], want[1:]):
+            w = np.array(w, np.float32)
+            tol = (2.0 ** -6 * np.abs(w).max() if dtype == jnp.bfloat16
+                   else 1e-5)
+            np.testing.assert_allclose(g.float().numpy(), w, atol=tol,
+                                       rtol=0)
+
+    @pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])
+    def test_leaky_relu_and_its_gradient_equal_jax(self, dtype):
+        """ops/nn.py::leaky_relu against gan_codes_tpu.ops.nn.leaky_relu and
+        its jax.grad, bit for bit, inputs exactly 0 among them (slope 1
+        there, where F.leaky_relu's gradient is 0.2)."""
+        rng = np.random.default_rng(14)
+        x = rng.standard_normal((4, 6, 6, 32)).astype(np.float32)
+        x[0, 0, :, :8] = 0.0
+        x[1, 2, :, :8] = -0.0
+        r = rng.standard_normal(x.shape).astype(np.float32)
+        tdt = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+        xt = torch.from_numpy(x).to(tdt).requires_grad_()
+        got = pnn.leaky_relu(xt)
+        (got * torch.from_numpy(r).to(tdt)).sum().backward()
+        jx, jr = jnp.asarray(x).astype(dtype), jnp.asarray(r).astype(dtype)
+        want = jnn.leaky_relu(jx)
+        want_grad = jax.grad(lambda v: jnp.sum(jnn.leaky_relu(v) * jr))(jx)
+        for g, w in ((got, want), (xt.grad, want_grad)):
+            assert torch.equal(g.detach().float(),
+                               torch.from_numpy(np.array(w, np.float32)))
+        assert torch.equal(xt.grad[0, 0, :, :8].float(),
+                           torch.from_numpy(r[0, 0, :, :8]).to(tdt).float())
+
+    def test_the_modules_in_sequentials_are_the_same_function(self):
+        """The reference's nn.LeakyReLU(0.2) slots (state_dict indexes kept)
+        hold ops/nn.py's LeakyReLU."""
+        from gan_codes_tpu_torch.config import DiscriminatorConfig
+        from gan_codes_tpu_torch.models.discriminator import Discriminator
+        g = Generator(GeneratorConfig(n_channels=4, image_size=32))
+        d = Discriminator(DiscriminatorConfig(n_channels=4, image_size=32))
+        mods = [g.conv_out[0], d.img_sentence_forward[1]]
+        for block in d.img_forward[1:]:
+            mods += [block.residual_conv[1], block.residual_conv[3]]
+        x = torch.randn(2, 3, 3, 5).bfloat16()
+        for m in mods:
+            assert isinstance(m, pnn.LeakyReLU)
+            assert torch.equal(m(x), pnn.leaky_relu(x))
+        assert "conv_out.1.weight" in g.state_dict()
+        assert "img_sentence_forward.2.weight" in d.state_dict()

@@ -199,3 +199,141 @@ class TestShapes:
         bad[13] = torch.ones(2)
         with pytest.raises(ValueError, match="gamma"):
             fr.fused_resblock_g(*bad)
+
+
+def _ladder(image_size):
+    cfg = GeneratorConfig(image_size=image_size)
+    return [(cfg.base_size * 2 ** i, cin, cout)
+            for i, (cin, cout) in enumerate(cfg.block_channels)]
+
+
+class TestPlan:
+    """K3's `_plan` at every block of the 32-256px generators (n_channels
+    32), in both dtypes, at batch 8 and at an odd batch that breaks the
+    sample stacking."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("image_size", [32, 64, 128, 256])
+    def test_tiles_cover_each_pixel_once_within_shared_memory(
+            self, dtype, image_size):
+        for batch in (8, 5):
+            for hw, cin, cout in _ladder(image_size):
+                p = fr._plan(batch, hw, hw, cin, cout, dtype, cin != cout)
+                assert p.smem <= fr.SMEM_LIMIT
+                assert 9 <= p.stages <= fr.MAX_STAGES
+                assert p.n_tiles * p.nt * 32 == cout
+                assert p.ch1 * p.ks * p.kc >= cin
+                assert p.ch2 * p.ks * p.kc >= cout
+                rs = batch * (hw + 1) - 1  # stacked rows, a gap row apart
+                assert (p.tiles_h - 1) * p.th < rs <= p.tiles_h * p.th
+                assert (p.tiles_w - 1) * p.tw < hw <= p.tiles_w * p.tw
+                covered = np.zeros((batch, hw, hw), np.int64)
+                for tr in range(p.tiles_h):
+                    rows = np.arange(tr * p.th, min((tr + 1) * p.th, rs))
+                    rows = rows[rows % (hw + 1) != hw]
+                    for tc in range(p.tiles_w):
+                        covered[rows // (hw + 1), rows % (hw + 1),
+                                tc * p.tw:(tc + 1) * p.tw] += 1
+                assert (covered == 1).all()
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("image_size", [32, 256])
+    def test_flat_rows_reach_the_tile_and_its_halo(self, dtype, image_size):
+        """Conv1's M rows (pitch p1 = tw + 4 over the x halo) cover h1 on
+        the tile and its 1-pixel halo, conv2's (pitch p2 = tw + 2 over h1)
+        the tile, and each 3x3 tap of a flat row is the 2-D neighbour: row
+        m of a pitch-p grid is (m // p, m % p), tap (dy, dx) reads m + dy *
+        p + dx = (m // p + dy, m % p + dx) for the kept columns. A pass's
+        A buffer holds its 128 rows and the largest tap shift."""
+        for hw, cin, cout in _ladder(image_size):
+            p = fr._plan(8, hw, hw, cin, cout, dtype, cin != cout)
+            p1, p2, m1, m2, apix, hpix = fr._geometry(p.th, p.tw)
+            assert (m1, m2) == (p.m1, p.m2) and hpix == (p.th + 2) * p2
+            for pitch, m_tiles, rows, cols in ((p1, m1, p.th + 2, p.tw + 2),
+                                               (p2, m2, p.th, p.tw)):
+                kept = [r * pitch + c for r in range(rows)
+                        for c in range(cols)]
+                assert max(kept) < m_tiles * 64
+                for m in kept:
+                    for dy in range(3):
+                        for dx in range(3):
+                            q = m + dy * pitch + dx
+                            assert divmod(q, pitch) == (m // pitch + dy,
+                                                        m % pitch + dx)
+                            assert q - (m // 128) * 128 < apix
+            assert apix == 128 + 2 * p1 + 2
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_a_1x1_shortcut_at_cin_equal_cout_is_planned_as_one(self, dtype):
+        """The plan follows ws, not Cin != Cout: a block with a 1x1 shortcut
+        and Cin == Cout gets the N tile that leaves the shortcut's sums
+        their registers (the kernel has no wider instantiation)."""
+        p = fr._plan(8, 16, 16, 128, 128, dtype, True)
+        assert p.nt <= fr.MAX_NT[(dtype, True)] < fr.MAX_NT[(dtype, False)]
+        assert p.scratch_bytes > fr._plan(8, 16, 16, 128, 128, dtype,
+                                          False).scratch_bytes
+
+    def test_conv1_share_where_shared_memory_allows(self):
+        """Conv1's M rows over the output pixels stay at or below the
+        direct-conv K3's 1.5625 at the 64-256px blocks of the 256px
+        generator (Cout <= 128), in both dtypes."""
+        for dtype in (torch.float32, torch.bfloat16):
+            for hw, cin, cout in _ladder(256):
+                if hw >= 64:
+                    p = fr._plan(8, hw, hw, cin, cout, dtype, cin != cout)
+                    assert p.conv1_share <= fr.CONV1_SHARE, (hw, dtype, p)
+
+
+class TestPack:
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("dims", [(8, 64, 64, 256, 128),
+                                      (8, 16, 16, 256, 256)])
+    def test_w1_w2_ws_equal_a_plain_packing(self, dtype, dims):
+        """K2's pack with K3's plan: w1, w2 (3x3) and ws (1x1, one tap) hold
+        each weight where the stages' layout says, [n tile][chunk][tap][k
+        step][part][N / 8][2][8][kc / 2] (input channel (chunk * ks + k
+        step) * kc + K column * kc / 2 + k, output channel n tile * N +
+        8 * block + row, 0 past the channels; fp32's parts the tf32 split),
+        and they fill `scratch_bytes` (ws only with the 1x1 shortcut)."""
+        b, h, w, cin, cout = dims
+        plan = fr._plan(b, h, w, cin, cout, dtype, cin != cout)
+        rng = np.random.default_rng(3)
+        total = 0
+        weights = [(3, cin), (3, cout)] + ([(1, cin)] if cin != cout
+                                           else [])
+        for kh, ci in weights:
+            wt = torch.from_numpy(rng.standard_normal(
+                (kh, kh, ci, cout)).astype(np.float32)).to(dtype)
+            chunks = plan.ch1 if ci == cin else plan.ch2
+            # K2's pack plan for this weight, as csrc/fused_resblock.cu
+            # calls the pack kernel
+            packed = fr.fused_modconv.pack_weights(wt, fr.fused_modconv.Plan(
+                plan.kc, plan.ks, chunks, plan.nt, plan.n_tiles, chunks, 1,
+                0))
+            parts = (fr.fused_modconv.tf32_split(wt)
+                     if dtype == torch.float32 else (wt,))
+            assert packed.shape == (plan.n_tiles, chunks, kh * kh, plan.ks,
+                                    len(parts), plan.nt * 4, 2, 8,
+                                    plan.kc // 2)
+            want = torch.zeros(packed.shape, dtype=dtype)
+            for n in range(plan.n_tiles):
+                for c in range(chunks):
+                    for q in range(plan.ks):
+                        for kb in range(2):
+                            c0 = ((c * plan.ks + q) * plan.kc
+                                  + kb * (plan.kc // 2))
+                            cs = slice(c0, min(c0 + plan.kc // 2, ci))
+                            if c0 >= ci:
+                                continue
+                            for i, part in enumerate(parts):
+                                blk = part[:, :, cs,
+                                           n * plan.nt * 32:
+                                           (n + 1) * plan.nt * 32]
+                                # [kh, kw, k, N] -> [tap, N/8, 8, k]
+                                blk = blk.reshape(kh * kh, -1, plan.nt * 4,
+                                                  8).permute(0, 2, 3, 1)
+                                want[n, c, :, q, i, :, kb, :,
+                                     :blk.shape[-1]] = blk
+            assert torch.equal(packed, want)
+            total += -(-packed.numel() * packed.element_size() // 256) * 256
+        assert total == plan.scratch_bytes
