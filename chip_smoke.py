@@ -57,24 +57,47 @@ Phases (any failed check raises, so the run exits non-zero):
    two windows of at least TRAIN_WINDOW_S seconds (CUDA events), the peak
    device memory, the device time of a step by kernel group
    (torch.profiler) and of each phase apart (CUDA events). From one fp32
-   state, the phase-3 G gradients against one D, and then one whole step,
-   are held against the same through the plain versions.
+   state, held against the same through the plain versions: the phase-3
+   G gradients against one D; one whole step, D learning (its losses, its
+   phase-1 D gradients and its G gradients); the phase-3 G gradients
+   against the D that step left through the kernels.
 5. Train entry: writes a synthetic CUB fixture (`make_synthetic_cub`,
-   48 train and 24 test images of 256-511 px) and a seeded text encoder,
-   then runs `train_entry.train` at full width (256px, n_channels 32,
-   batch 24, fp32, 2 steps per epoch): run A, 2 epochs uninterrupted; run
-   B, 1 epoch, then a second call with 2 epochs on the same directories,
-   which must print "Resuming from epoch 1". Holds: the state B's second
-   call restored equals the state B saved, bit for bit (parameters, EMA,
-   Adam moments, step, RNG); B's second-epoch losses within rtol 1e-3 of
-   A's (cuDNN is not deterministic run to run); the checkpoint files,
-   one metrics row per epoch and the sample grid exist; the launch
-   counters rise by 14 K2, 0 K1 and 14 K1 bwd per step plus 14 K2 and 0
-   K1 per eval batch; `build_sampler` serves B's `gen_1.pth` over HTTP.
-   Prints the trainer's img/s with the device time of its steps and
-   copies and the host's data wait, eval and checkpoint seconds, beside
-   the bare step's img/s of phase 4.
-6. Prints one {"kernels": [...]} line, the nvidia-smi line, and, last,
+   48 train and 24 test images of 256-511 px), a seeded text encoder and
+   a seeded random InceptionV3 `.pth` in torchvision's layout (the keys of
+   the port's `_conv_specs`, random BN running stats), then runs
+   `train_entry.train` with that `.pth` at full width (256px, n_channels
+   32, batch 24, fp32, 2 steps per epoch): run A, 2 epochs uninterrupted;
+   run B, 1 epoch, then a second call with 2 epochs on the same
+   directories, which must print "Resuming from epoch 1". Holds: the
+   state B's second call restored equals the state B saved, bit for bit
+   (parameters, EMA, Adam moments, step, RNG); B's second-epoch losses
+   within rtol 1e-3 of A's (cuDNN is not deterministic run to run); the
+   checkpoint files, one metrics row per epoch with a finite IS > 1 and
+   a finite FID (not the sentinels 1.0 and inf), B's second-epoch IS - 1
+   and FID within ENTRY_IS_RTOL and ENTRY_FID_RTOL of A's, and the sample
+   grid; the launch counters rise by 14 K2, 0 K1 and 14 K1 bwd per step
+   plus 14 K2 and 0 K1 per eval batch; `build_sampler` serves B's
+   `gen_1.pth` over HTTP. Prints the trainer's img/s with the device time
+   of its steps and copies and the host's data wait, eval and checkpoint
+   seconds, beside the bare step's img/s of phase 4.
+6. Eval: the reference's per-epoch protocol at full width, EVAL_BATCHES
+   batches of 24 = 768 images a side: fakes from the 256px G (n_channels
+   32, every block gamma != 0) on seeded random captions, seeded 256px
+   uint8 reals, the phase-5 Inception `.pth` through
+   `load_torch_inception`, fp32 with TF32 off. With the launch counters
+   set to 0 just before, `Trainer.evaluate` runs twice on a deterministic
+   loader (the first computes the real side, the second reads it from the
+   cache; 14 K2 and 0 K1 per eval batch); both give a finite IS > 1 and
+   FID, and the same scores within the card-against-CPU limits. Prints
+   each evaluation's seconds, the same evaluation in parts (G fakes,
+   Inception on the fake side, on the real side, the host's IS/FID math),
+   Inception's img/s at batch 8 to 128 and the batch sizes whose features
+   equal batch 8's bit for bit, the device time of a batch-8 Inception
+   forward by kernel group (torch.profiler), and eval's share of a CUB
+   epoch (368 steps at phase 4's img/s). Holds the card against
+   the CPU: the features and softmax of 8 images, and IS/FID over
+   EVAL_SUBSET images a side (the low-rank cross term taken on both).
+7. Prints one {"kernels": [...]} line, the nvidia-smi line, and, last,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -106,6 +129,14 @@ TRAIN_BATCH = 24                 # the JAX package's TrainConfig default
 TRAIN_STEPS = 3                  # counted steps per dtype (main path)
 TRAIN_WINDOW_S = 3.5             # seconds per train throughput window
 ENTRY_TRAIN, ENTRY_TEST = 48, 24  # synthetic CUB images for the train entry
+ENTRY_IS_RTOL = 2e-2             # resumed B's epoch-2 IS - 1 against A's
+ENTRY_FID_RTOL = 5e-6            # and its FID
+EVAL_BATCHES = 32                # the reference's eval_max_batches (x 24)
+EVAL_SUBSET = 48                 # images a side, IS/FID card against CPU
+EVAL_IS_RTOL = 1e-2              # IS - 1, card against CPU
+EVAL_FID_RTOL = 1e-5             # FID, card against CPU
+EVAL_BATCH_SIZES = (8, 16, 32, 64, 128)  # inception batches timed
+CUB_STEPS_PER_EPOCH = 368        # CUB's 8855 train images / batch 24
 H100_HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # CUDA cores, non-tensor
 H100_BF16_TENSOR_FLOPS = 989e12  # dense tensor cores
@@ -136,13 +167,31 @@ H100_TF32_TENSOR_FLOPS = 495e12  # dense tensor cores; K2's fp32 runs
 #   The served image (phase 3, fp32) passes 14 DFBlocks, each reordered:
 #   allclose(1e-3, 1e-3).
 #   Train (phase 4, fp32), kernels against the plain versions from one
-#   state: the phase-3 G gradients against one D, and after one whole
-#   step, max|err| <= 1e-3 * max|ref| over all G gradients (the convs'
-#   sums are reordered; a scalar such as a block gamma sums 10^7 products
-#   that cancel, so a per-tensor ratio is printed, not held); the step's
-#   d_loss, d_gp_loss, g_loss rtol 1e-4. Adam with beta1 = 0 turns a
-#   near-zero D gradient into +-lr, so parameters after the step are not
-#   compared.
+#   state: the phase-3 G gradients against one D; in one whole step (D
+#   learning) its G gradients and its phase-1 D gradients; the phase-3 G
+#   gradients against the D that step left; each max|err| <= 1e-3 *
+#   max|ref| over all of them (the convs' sums are reordered; a scalar
+#   such as a block gamma sums 10^7 products that cancel, so a per-tensor
+#   ratio is printed, not held); the step's d_loss, d_gp_loss, g_loss
+#   rtol 1e-4. Adam with beta1 = 0 turns a D gradient within rounding of
+#   zero into +-lr, so D's parameters after the step are not compared.
+#   H100 readings (PR 7): D gradients 7.9e-6, the step's G gradients
+#   8.8e-6 to 3.6e-5; d_gp_loss 6.1e-8 to 8.5e-7, g_loss 1.7e-7 to
+#   1.5e-5 (3 D elements flipped in every process).
+#   Eval (phase 6), the card against the CPU, both fp32 (TF32 off on the
+#   card): InceptionV3's pool features atol 2e-4 / rtol 1e-3 and its
+#   softmax atol 1e-4 (tests/test_metrics.py's oracle tolerances: cuDNN
+#   and the CPU sum each conv in other orders); over EVAL_SUBSET images a
+#   side, IS - 1 within EVAL_IS_RTOL and FID within EVAL_FID_RTOL (the
+#   features' gaps, through the low-rank cross term). IS is held as IS - 1:
+#   random Inception weights give IS about 1 + 1.5e-4, and one float32 ulp
+#   of IS is 8e-4 of that. H100 readings (PR 7): IS - 1 gap 0, FID
+#   5.7e-7 to 5.9e-7; the same limits hold a second evaluation (real side
+#   cached) and the evaluation in parts against the first (readings 0).
+#   Phase 5's resumed run B scores epoch 2 with IS - 1 within
+#   ENTRY_IS_RTOL and FID within ENTRY_FID_RTOL of run A (its G differs as
+#   its losses do; readings: IS 0 to 2 ulps, 1.6e-3 of IS - 1; FID 7.4e-8
+#   to 2.9e-7).
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -675,6 +724,19 @@ def write_weights(root: str) -> None:
         pickle.dump(([], [], code2word, word2code), f)
 
 
+def write_inception(path: str) -> None:
+    """A seeded random InceptionV3 state_dict in torchvision's layout
+    (`random_torchvision_state_dict`: BN with random running stats, so the
+    fold is exercised)."""
+    import torch
+
+    from gan_codes_tpu_torch.models.inception import \
+        random_torchvision_state_dict
+
+    torch.save(random_torchvision_state_dict(
+        torch.Generator().manual_seed(SEED)), path)
+
+
 def post(url: str, payload: dict):
     req = urllib.request.Request(url + "/generate",
                                  data=json.dumps(payload).encode(),
@@ -1025,7 +1087,8 @@ def train():
 
     # (a) phase 3 alone against one D: G forward + backward (the kernels'
     # backward) from one state, through the kernels and through the plain
-    # versions; (b) one whole fp32 step from one state each way
+    # versions; (b) one whole fp32 step, D learning, from one state each
+    # way; (c) phase 3 again, against the D that (b)'s kernels step left
     cfg, state, te, step, (images, captions, cap_lens) = _train_setup(
         "float32")
     noise = torch.randn((TRAIN_BATCH, cfg.generator.latent_dim),
@@ -1036,9 +1099,9 @@ def train():
                                        cap_lens, noise, cfg.loss)
     log(f"[train] fp32 device ms by phase (CUDA events, 3 calls each): "
         f"{json.dumps(numbers['phase_ms'])}")
-    g_params = list(state.generator.named_parameters())
 
-    def phase3_grads():
+    def phase3_grads(state):
+        g_params = list(state.generator.named_parameters())
         with torch.no_grad():
             sents = te(captions, cap_lens).float()
         fake = state.generator(noise, sents)
@@ -1046,37 +1109,84 @@ def train():
         return dict(zip((n for n, _ in g_params), torch.autograd.grad(
             loss, [p for _, p in g_params])))
 
-    grads = [_plain_or_kernels(plain, phase3_grads) for plain in (False,
-                                                                  True)]
-    one_d = _grad_gap(*grads)
-    log(f"[train] phase-3 G gradients against one D, kernels vs plain "
-        f"versions: {_gap_text(one_d)}")
-    if one_d["max_err"] > 1e-3 * one_d["max_ref"]:
-        raise AssertionError(f"phase-3 G gradients against one D: {one_d}")
-    del state, step, grads
+    def phase3_gap(state, what: str) -> dict:
+        grads = [_plain_or_kernels(plain, lambda: phase3_grads(state))
+                 for plain in (False, True)]
+        gap = _grad_gap(*grads)
+        log(f"[train] phase-3 G gradients against {what}, kernels vs plain "
+            f"versions: {_gap_text(gap)}")
+        if gap["max_err"] > 1e-3 * gap["max_ref"]:
+            raise AssertionError(f"phase-3 G gradients against {what}: "
+                                 f"{gap}")
+        return gap
 
+    one_d = phase3_gap(state, "one D")
+    del state, step
+
+    # (b) The kernels reach the step through G's fakes and G's backward.
+    # Held: the losses, the step's G gradients, and its phase-1 D
+    # gradients (the input of D's update). D's parameters after the step
+    # are not compared: Adam's first update (beta1 0) is lr * g / (|g| +
+    # eps), +-lr for any |g| well above eps, and about 9% of D's gradient
+    # elements lie under 1e-7, so rounding decides the sign of a few of
+    # them (3 here), which also moves d_gp_loss and g_loss: a G whose
+    # rounding differs by an ulp can flip hundreds and move d_gp_loss by
+    # 0.2% (kernel_ab.py --steps diagnoses it).
     results = []
     for plain in (False, True):
         cfg, state, te, step, batch = _train_setup("float32")
+        d_steps = []
+        d_step = state.d_opt.step
+
+        def record(grads, d_step=d_step, d_steps=d_steps):
+            grads = list(grads)
+            d_steps.append([g.detach().clone() for g in grads])
+            d_step(grads)
+
+        state.d_opt.step = record
         m = _plain_or_kernels(plain, lambda: step(state, te, *batch,
                                                   noise=noise))
+        d_names = [n for n, _ in state.discriminator.named_parameters()]
         results.append(({k: v.item() for k, v in m.items()},
                         {name: p.grad.detach().clone() for name, p in
-                         state.generator.named_parameters()}))
-        del state, step
-    (m_k, g_k), (m_p, g_p) = results
+                         state.generator.named_parameters()},
+                        dict(zip(d_names, d_steps[0])),
+                        {name: p.detach().clone() for name, p in
+                         state.discriminator.named_parameters()}))
+        del state, step, d_steps
+    (m_k, g_k, d_k, dp_k), (m_p, g_p, d_p, dp_p) = results
     for key in ("d_loss", "d_gp_loss", "g_loss"):
         if not np.isclose(m_k[key], m_p[key], rtol=1e-4, atol=0.0):
             raise AssertionError(f"{key}: kernels {m_k[key]} plain "
                                  f"{m_p[key]}")
-    step_gap = _grad_gap(g_k, g_p)
+    step_gap, d_gap = _grad_gap(g_k, g_p), _grad_gap(d_k, d_p)
+    lr = cfg.optim.d_lr
+    moved = sum(int(((dp_k[n] - dp_p[n]).abs() > lr / 4).sum())
+                for n in dp_p)
+    loss_gaps = {k: abs(m_k[k] - m_p[k]) / abs(m_p[k])
+                 for k in ("d_loss", "d_gp_loss", "g_loss")}
     log(f"[train] one fp32 step, kernels vs plain versions: losses "
-        f"{json.dumps(m_k)} vs {json.dumps(m_p)}; phase-3 G gradients: "
-        f"{_gap_text(step_gap)}")
+        f"{json.dumps(m_k)} vs {json.dumps(m_p)} (relative gaps "
+        f"{json.dumps(loss_gaps)}; D parameters over lr/4 apart after "
+        f"the step: {moved}); phase-1 D gradients: {_gap_text(d_gap)}; "
+        f"phase-3 G gradients: {_gap_text(step_gap)}")
+    if d_gap["max_err"] > 1e-3 * d_gap["max_ref"]:
+        raise AssertionError(f"phase-1 D gradients of one step: {d_gap}")
     if step_gap["max_err"] > 1e-3 * step_gap["max_ref"]:
         raise AssertionError(f"phase-3 G gradients of one step: {step_gap}")
+
+    _, state, te, step, _ = _train_setup("float32")
+    with torch.no_grad():
+        for name, p in state.discriminator.named_parameters():
+            p.copy_(dp_k[name])
+    learned_d = phase3_gap(state, "the D one kernels step left")
+    del state, step
     numbers["vs_plain"] = {"kernels": m_k, "plain": m_p,
-                           "step_g_grads": step_gap, "one_d_g_grads": one_d}
+                           "loss_rel_gaps": loss_gaps,
+                           "d_params_over_lr_4": moved,
+                           "step_d_grads": d_gap, "step_g_grads": step_gap,
+                           "one_d_g_grads": one_d,
+                           "learned_d_g_grads": learned_d}
     return counts, numbers
 
 
@@ -1210,7 +1320,7 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
-def train_entry_phase(root: str, bare_img_s: float):
+def train_entry_phase(root: str, bare_img_s: float, inception_path: str):
     """Phase 5. Returns (K2, K1, K1 bwd launches over the three
     `train_entry.train` calls, train-entry numbers)."""
     import contextlib
@@ -1262,7 +1372,7 @@ def train_entry_phase(root: str, bare_img_s: float):
     def run(name: str, epochs: int):
         kw = dict(image_size=256, batch_size=TRAIN_BATCH, num_epochs=epochs,
                   seed=SEED, n_channels=32, compute_dtype="float32",
-                  device="cuda")
+                  inception_weights_path=inception_path, device="cuda")
         tee = _Tee(sys.stdout)
         k2.launches = k1.launches = k1b.launches = 0  # main path starts
         t = time.perf_counter()
@@ -1318,6 +1428,7 @@ def train_entry_phase(root: str, bare_img_s: float):
             raise AssertionError(f"epoch 2 {key} not finite: {a} {b}")
     log(f"[entry] epoch 2, resumed B against uninterrupted A: relative gaps "
         f"{json.dumps(gaps)}; A {json.dumps({k: v[1] for k, v in hist_a.items()})}")
+    scores = {}
     for name in ("a", "b"):
         wdir = os.path.join(root, f"{name}_weights")
         for f in ("histories.json", "metrics_log.jsonl", "config.json",
@@ -1325,12 +1436,26 @@ def train_entry_phase(root: str, bare_img_s: float):
             if not os.path.exists(os.path.join(wdir, f)):
                 raise AssertionError(f"run {name}: {f} missing")
         with open(os.path.join(wdir, "metrics_log.jsonl")) as f:
-            epochs = [json.loads(line)["epoch"] for line in f]
-        if epochs != [0, 1]:
-            raise AssertionError(f"run {name}: metrics rows {epochs}")
+            rows = [json.loads(line) for line in f]
+        if [r["epoch"] for r in rows] != [0, 1]:
+            raise AssertionError(f"run {name}: metrics rows {rows}")
+        for r in rows:  # json writes inf as the string "Infinity"
+            is_s, fid = r["is_score"], r["fid_score"]
+            if not (isinstance(fid, float) and np.isfinite(fid)
+                    and np.isfinite(is_s) and is_s > 1.0):
+                raise AssertionError(f"run {name} epoch {r['epoch']}: IS "
+                                     f"{is_s}, FID {fid}")
+        scores[name] = [(r["is_score"], r["fid_score"]) for r in rows]
         grid = os.path.join(root, f"{name}_images", "fake_sample_epoch_1.png")
         if not os.path.exists(grid):
             raise AssertionError(f"run {name}: sample grid missing")
+    score_gaps = _score_gaps(scores["b"][1], scores["a"][1])
+    log(f"[entry] IS, FID per epoch (24 test images a side, random "
+        f"Inception weights): run A {scores['a']}, run B {scores['b']}; "
+        f"epoch 2 relative gaps B vs A {score_gaps}")
+    if score_gaps[0] > ENTRY_IS_RTOL or score_gaps[1] > ENTRY_FID_RTOL:
+        raise AssertionError(f"epoch 2 IS/FID: run A {scores['a'][1]}, "
+                             f"resumed run B {scores['b'][1]}")
     grid_px = Image.open(grid).size
     log(f"[entry] files present in both runs; grid {grid_px} px; figure "
         f"{'written' if os.path.exists(os.path.join(root, 'b_images', 'samples_with_text_epoch_1.jpg')) else 'not written'}")
@@ -1379,7 +1504,214 @@ def train_entry_phase(root: str, bare_img_s: float):
             f"{hs['checkpoint']:.3f}s; whole call {wall:.2f}s = "
             f"{numbers[name]['img_per_s_call']:.2f} img/s; bare step "
             f"(phase 4) {bare_img_s:.2f} img/s")
+    numbers["scores"] = scores
     return tuple(totals), numbers
+
+
+class _EvalLoader(list):
+    """A deterministic test loader (unshuffled, un-augmented), so the
+    trainer caches its real side."""
+    shuffle = False
+    dataset = type("Dataset", (), {"augment": False})
+
+
+def _score_gaps(got, want) -> list:
+    """[|IS gap| / (IS - 1), |FID gap| / FID] of (IS, FID) pairs: IS is
+    held as IS - 1, which is about 1e-4 with random Inception weights."""
+    return [abs(got[0] - want[0]) / (want[0] - 1.0),
+            abs(got[1] - want[1]) / want[1]]
+
+
+def _scores_close(got, want) -> bool:
+    is_gap, fid_gap = _score_gaps(got, want)
+    return is_gap <= EVAL_IS_RTOL and fid_gap <= EVAL_FID_RTOL
+
+
+def _seconds(fn):
+    """(result, host seconds) of fn, the card synchronized on both ends."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def eval_phase(root: str, inception_path: str, bare_img_s: float):
+    """Phase 6. Returns (K2, K1 launches of two `Trainer.evaluate` calls,
+    eval numbers)."""
+    from unittest import mock
+
+    import torch
+
+    from gan_codes_tpu_torch.config import GANConfig
+    from gan_codes_tpu_torch.eval import metrics
+    from gan_codes_tpu_torch.models.inception import (inception_to,
+                                                      load_torch_inception)
+    from gan_codes_tpu_torch.models.text_encoder import RNNEncoder
+    from gan_codes_tpu_torch.ops.kernels import fused_modconv
+    from gan_codes_tpu_torch.train.trainer import Trainer
+
+    cfg = GANConfig.for_image_size(256, batch_size=TRAIN_BATCH,
+                                   eval_max_batches=EVAL_BATCHES)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        te = RNNEncoder(cfg.text_encoder)
+    trainer = Trainer(cfg, te, os.path.join(root, "weights"),
+                      os.path.join(root, "images"),
+                      inception_params=load_torch_inception(inception_path),
+                      seed=SEED, device="cuda")
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for name, p in trainer.state.generator.named_parameters():
+            if name.endswith(".gamma"):  # away from the 0 init
+                p.copy_(torch.rand(1, generator=gen) * 0.5 + 0.25)
+    rng = np.random.default_rng(SEED)
+    size, length = cfg.generator.image_size, cfg.text_encoder.max_len
+    loader = _EvalLoader(
+        {"images": rng.integers(0, 256, (TRAIN_BATCH, size, size, 3),
+                                dtype=np.uint8),
+         "captions": rng.integers(1, cfg.text_encoder.vocab_size,
+                                  (TRAIN_BATCH, length), dtype=np.int64),
+         "cap_lens": rng.integers(1, length + 1, TRAIN_BATCH)}
+        for _ in range(EVAL_BATCHES))
+    n = EVAL_BATCHES * TRAIN_BATCH
+    params = trainer.inception_params
+    log(f"[eval] {EVAL_BATCHES} batches x {TRAIN_BATCH} = {n} images a side, "
+        f"256px G (n_channels 32) fakes, seeded 256px reals, random "
+        f"Inception weights from {os.path.basename(inception_path)}")
+
+    # the main path: two epochs' evaluations, the first computing the real
+    # side, the second reading it from the cache
+    k2, k1, k1b = _counters()
+    k2.launches = k1.launches = k1b.launches = 0  # the eval path starts
+    scores, eval_s = [], []
+    for _ in range(2):
+        trainer._eval_rng = trainer._epoch_generator(0)
+        out, sec = _seconds(lambda: trainer.evaluate(loader))
+        scores.append(out[:2])
+        eval_s.append(sec)
+    counts = (k2.launches, k1.launches, k1b.launches)  # ends here
+    shapes = dfblock_shapes(cfg.generator)
+    n_k2 = sum(fused_modconv._supported(
+        torch.empty(3, 3, cin, cout, device="meta"))
+        for _, cin, cout in shapes)
+    want = (2 * EVAL_BATCHES * n_k2, 2 * EVAL_BATCHES * (len(shapes) - n_k2),
+            0)
+    log(f"[eval] launches over 2 evaluations (K2, K1, K1 bwd): {counts} "
+        f"(want {want}); IS, FID: first {scores[0]}, cached real side "
+        f"{scores[1]}")
+    if counts != want:
+        raise AssertionError(f"eval launch counters {counts} != {want}")
+    for is_s, fid in scores:
+        if not (np.isfinite(is_s) and is_s > 1.0 and np.isfinite(fid)):
+            raise AssertionError(f"eval scores IS {is_s}, FID {fid}")
+    if not _scores_close(scores[1], scores[0]):
+        raise AssertionError(f"cached real side changed the scores: "
+                             f"{scores}")
+
+    # the same evaluation in its parts
+    trainer._eval_rng = trainer._epoch_generator(0)
+    fakes, g_s = _seconds(lambda: torch.cat(
+        [trainer.generate(b["captions"], b["cap_lens"]) for b in loader]))
+    reals, copy_s = _seconds(lambda: torch.cat(
+        [trainer._device_batch(b)[0] for b in loader]))
+    feats = {}
+
+    def inception(fn, images):
+        return metrics._batched(fn, params, images, 8)
+
+    (feats["p"], feats["f"]), fake_s = _seconds(lambda: (
+        inception(metrics._logits_batch, fakes),
+        inception(metrics._features_batch, fakes)))
+    feats["r"], real_s = _seconds(
+        lambda: inception(metrics._features_batch, reals))
+    table = {("_logits_batch", id(fakes)): feats["p"],
+             ("_features_batch", id(fakes)): feats["f"],
+             ("_features_batch", id(reals)): feats["r"]}
+    with mock.patch.object(metrics, "_batched", lambda fn, p, im, bs:
+                           table[(fn.__name__, id(im))]):
+        parts, host_s = _seconds(
+            lambda: metrics.compute_is_fid(params, fakes, reals))
+    split = {"g_fakes_s": g_s, "inception_fake_side_s": fake_s,
+             "inception_real_side_s": real_s, "host_math_s": host_s,
+             "reals_to_device_s": copy_s}
+    log(f"[eval] one epoch's eval: first {eval_s[0]:.3f} s (real side "
+        f"computed), cached {eval_s[1]:.3f} s; in parts (s): "
+        f"{json.dumps(split)}; IS, FID from the parts {parts}")
+    if not _scores_close(parts, scores[0]):
+        raise AssertionError(f"parts {parts} against evaluate {scores[0]}")
+
+    # inception throughput by batch size; a batch size counts as "changes
+    # no number" when its features equal batch 8's bit for bit
+    rates, same = {}, []
+    for bs in EVAL_BATCH_SIZES:
+        metrics._batched(metrics._features_batch, params, fakes[:bs], bs)
+        out, sec = _seconds(lambda: metrics._batched(
+            metrics._features_batch, params, fakes, bs))
+        rates[bs] = n / sec
+        if np.array_equal(out, feats["f"]):
+            same.append(bs)
+    log(f"[eval] inception features, {n} images, img/s by batch "
+        f"{json.dumps(rates)}; bit-identical to batch 8 at {same}")
+    with torch.inference_mode():
+        res = _profile(lambda: metrics._features_batch(params, fakes[:8]), 3)
+    profile_b8 = None
+    if res is not None:
+        profile_b8, top = res
+        log("[profile] inception features, batch 8 " + json.dumps(profile_b8))
+        for name, ms in top:
+            log(f"[profile] {ms:8.3f} ms/batch  {name[:110]}")
+
+    # the card against the CPU: the network on 8 images, then IS/FID over
+    # EVAL_SUBSET images a side through the low-rank cross term
+    cpu = inception_to(params, "cpu")
+    x = torch.cat([reals[:4], fakes[:4]])
+    with torch.inference_mode():
+        f_card = metrics._features_batch(params, x).cpu().numpy()
+        f_cpu = metrics._features_batch(cpu, x.cpu()).numpy()
+        p_card = metrics._logits_batch(params, x).cpu().numpy()
+        p_cpu = metrics._logits_batch(cpu, x.cpu()).numpy()
+    gaps = {"features": float(np.abs(f_card - f_cpu).max()),
+            "features_max": float(np.abs(f_cpu).max()),
+            "softmax": float(np.abs(p_card - p_cpu).max())}
+    if not (np.allclose(f_card, f_cpu, atol=2e-4, rtol=1e-3)
+            and np.allclose(p_card, p_cpu, atol=1e-4, rtol=0.0)):
+        raise AssertionError(f"inception card vs CPU: {gaps}")
+    sub_f, sub_r = fakes[:EVAL_SUBSET], reals[:EVAL_SUBSET]
+    with mock.patch.object(metrics, "sqrtm_trace_lowrank",
+                           wraps=metrics.sqrtm_trace_lowrank) as lowrank:
+        on_card, card_s = _seconds(
+            lambda: metrics.compute_is_fid(params, sub_f, sub_r))
+        t = time.perf_counter()
+        on_cpu = metrics.compute_is_fid(cpu, sub_f.cpu(), sub_r.cpu())
+        cpu_s = time.perf_counter() - t
+    gaps["is_minus_1_fid_rel"] = _score_gaps(on_card, on_cpu)
+    log(f"[eval] card vs CPU: 8 images {json.dumps(gaps)}; IS, FID over "
+        f"{EVAL_SUBSET} a side: card {on_card} ({card_s:.2f} s), CPU "
+        f"{on_cpu} ({cpu_s:.2f} s), low-rank calls {lowrank.call_count}")
+    if lowrank.call_count != 2:
+        raise AssertionError("the low-rank cross term was not taken")
+    if not (np.all(np.isfinite(on_card))
+            and _scores_close(on_card, on_cpu)):
+        raise AssertionError(f"IS/FID card {on_card} vs CPU {on_cpu}")
+
+    epoch_s = CUB_STEPS_PER_EPOCH * TRAIN_BATCH / bare_img_s
+    numbers = {"images_a_side": n, "eval_s_first": eval_s[0],
+               "eval_s_cached": eval_s[1], "split": split,
+               "inception_img_per_s": rates, "batch_bit_identical": same,
+               "inception_profile_batch8": profile_b8,
+               "card_vs_cpu": gaps, "scores": scores,
+               "cub_epoch_train_s": epoch_s,
+               "eval_share_first": eval_s[0] / (epoch_s + eval_s[0]),
+               "eval_share_cached": eval_s[1] / (epoch_s + eval_s[1])}
+    log(f"[eval] against CUB's {CUB_STEPS_PER_EPOCH} steps an epoch at the "
+        f"bare step's {bare_img_s:.2f} img/s ({epoch_s:.1f} s): eval is "
+        f"{100 * numbers['eval_share_first']:.2f}% of the first epoch, "
+        f"{100 * numbers['eval_share_cached']:.2f}% of a later one")
+    trainer.close()
+    return counts[:2], numbers
 
 
 def main() -> int:
@@ -1424,23 +1756,33 @@ def main() -> int:
     log("[train] " + json.dumps(train_numbers))
     log(f"[train] phase took {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    bare_img_s = min(train_numbers["img_per_s_float32"])
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR,
                                      prefix="entry_") as root:
+        inception_path = os.path.join(root, "inception_v3.pth")
+        write_inception(inception_path)
         (e_k2, e_k1, e_k1b), entry_numbers = train_entry_phase(
-            root, min(train_numbers["img_per_s_float32"]))
-    log("[entry] " + json.dumps(entry_numbers))
-    log(f"[entry] phase took {time.perf_counter() - t0:.1f}s")
+            root, bare_img_s, inception_path)
+        log("[entry] " + json.dumps(entry_numbers))
+        log(f"[entry] phase took {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        (v_k2, v_k1), eval_numbers = eval_phase(
+            os.path.join(root, "eval"), inception_path, bare_img_s)
+    log("[eval] " + json.dumps(eval_numbers))
+    log(f"[eval] phase took {time.perf_counter() - t0:.1f}s")
     # launches on the main paths; K3 is on none (as in the JAX package),
     # so its only launches are the kernel checks', which do not count
     launches = {"fused_modconv3x3": {"serve": k2, "train": t_k2,
-                                     "train_entry": e_k2},
+                                     "train_entry": e_k2, "eval": v_k2},
                 "fused_double_affine_leaky": {"serve": k1, "train": t_k1,
-                                              "train_entry": e_k1},
+                                              "train_entry": e_k1,
+                                              "eval": v_k1},
                 "fused_double_affine_leaky_bwd": {"serve": 0,
                                                   "train": t_k1b,
-                                                  "train_entry": e_k1b},
+                                                  "train_entry": e_k1b,
+                                                  "eval": 0},
                 "fused_resblock_g": {"serve": 0, "train": 0,
-                                     "train_entry": 0}}
+                                     "train_entry": 0, "eval": 0}}
     kernels = []
     for name, s in summary.items():
         by_path = dict(launches[name])

@@ -2,7 +2,12 @@
 
 Reference `src/test_generate.py:12-84`: tokenize a free-text prompt
 (lowercase, strip '.'/',', OOV -> <unk> -> 0, pad to 18), encode it with the
-frozen text encoder, generate one image from fresh noise.
+frozen text encoder, generate one image from fresh noise; `main` is the
+interactive CLI:
+
+    python -m gan_codes_tpu_torch.generate --data DATA_DIR \
+        --text-encoder text_encoder.pth --weights gen_weights \
+        [--prompt "a red bird"] [--ema] [--device cpu]
 """
 from __future__ import annotations
 
@@ -66,3 +71,73 @@ def generate_from_prompt(prompt: str, generator: Generator,
                         device=dev).to(dt)
     img = generator(noise, sents)
     return img[0].float().cpu().numpy()
+
+
+def main(data_dir: str = "data",
+         encoder_weights_path: str = "text_encoder.pth",
+         gen_weights_dir: str = "gen_weights",
+         image_save_path: str = "testing_images",
+         prompt: Optional[str] = None, use_ema: bool = False,
+         show: bool = False,
+         device: str | torch.device = "cuda") -> Optional[str]:
+    """Interactive prompt -> image (reference `test_generate.py:21-84`).
+
+    Restores the newest `gen_N.pth` in `gen_weights_dir` with its
+    `config.json` (as `serve.build_sampler` does) and the vocab of
+    `<data_dir>/captions.pickle`. `use_ema` samples from `gen_ema_N.pth`,
+    the EMA generator, instead. `show` also opens the saved image in the
+    system viewer (opt-in: the reference always calls `image.show()`).
+    Runs on CUDA unless `device="cpu"`."""
+    from .models.torch_import import load_generator
+    from .serve import build_sampler
+    from .utils import image_io
+
+    sampler, epoch = build_sampler(data_dir, encoder_weights_path,
+                                   gen_weights_dir, batch_size=1,
+                                   device=device)
+    if use_ema:
+        ema, _ = load_generator(os.path.join(gen_weights_dir,
+                                             f"gen_ema_{epoch}.pth"))
+        sampler.swap_generator_params(ema.state_dict())
+
+    if prompt is None:
+        prompt = input("Enter your text prompt: ").strip()
+    if not prompt:
+        print("No prompt entered.")
+        return None
+
+    img = generate_from_prompt(prompt, sampler.generator,
+                               sampler.text_encoder, sampler.cfg,
+                               sampler.word2code, device=sampler.device)
+    path = image_io.save_image(img, image_save_path, "sample_from_prompt")
+    print(f"Generated image saved to {path}")
+    if show:
+        from PIL import Image
+
+        Image.open(path).show()
+    return path
+
+
+def _cli(argv=None) -> Optional[str]:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="prompt -> image")
+    ap.add_argument("--data", default="data")
+    ap.add_argument("--text-encoder", default="text_encoder.pth")
+    ap.add_argument("--weights", default="gen_weights")
+    ap.add_argument("--out", default="testing_images")
+    ap.add_argument("--prompt", default=None)
+    ap.add_argument("--ema", action="store_true",
+                    help="sample from the EMA generator")
+    ap.add_argument("--show", action="store_true",
+                    help="open the saved image in the system viewer "
+                         "(reference test_generate.py:76-81 behavior)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    a = ap.parse_args(argv)
+    return main(a.data, a.text_encoder, a.weights, a.out, a.prompt,
+                use_ema=a.ema, show=a.show, device=a.device)
+
+
+if __name__ == "__main__":
+    _cli()

@@ -12,6 +12,8 @@ across to reference-keyed state_dicts:
   * block `gamma`: JAX scalar () -> torch shape [1]
   * LSTM: JAX [in, 4H] per direction -> torch [4H, in], gate order
     (i, f, g, o) unchanged
+  * InceptionV3 (`inception_params_from_jax`): each folded conv's HWIO
+    `w` -> OIHW, `fc.w` [2048, 1000] -> [1000, 2048]
 
 The JAX trees arrive as nested dicts/lists of numpy arrays (for example
 `jax.device_get(params)`); nothing here imports JAX.
@@ -187,3 +189,17 @@ def discriminator_state_dict_from_jax(params: Dict) -> StateDict:
     _conv(sd, "img_sentence_forward.0", params["conv_joint"])
     _conv(sd, "img_sentence_forward.2", params["conv_logit"])
     return sd
+
+
+def inception_params_from_jax(params: Dict) -> Dict[str, StateDict]:
+    """The JAX package's InceptionV3 params (each conv `w` HWIO, `scale`,
+    `bias`; `fc` `w` [2048, 1000], `b`) -> the port's (`models/
+    inception.py`: conv `w` OIHW, `fc` `w` [1000, 2048])."""
+    out: Dict[str, StateDict] = {}
+    for name, p in params.items():
+        if name == "fc":
+            out[name] = {"w": _t(p["w"]).t().contiguous(), "b": _t(p["b"])}
+        else:
+            out[name] = {"w": _t(p["w"]).permute(3, 2, 0, 1).contiguous(),
+                         "scale": _t(p["scale"]), "bias": _t(p["bias"])}
+    return out

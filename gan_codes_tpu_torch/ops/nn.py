@@ -22,11 +22,31 @@ from torch import nn
 NEG_SLOPE = 0.2
 
 
+@functools.lru_cache(maxsize=None)
+def _zeros(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A cached zero vector, made outside inference mode (as
+    `neg_slope`)."""
+    with torch.inference_mode(False):
+        return torch.zeros(n, dtype=dtype, device=device)
+
+
 def dense(x: torch.Tensor, weight: torch.Tensor,
           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x @ weight.T + bias with a torch Linear weight [out, in]."""
-    return F.linear(x, weight.to(x.dtype),
-                    None if bias is None else bias.to(x.dtype))
+    """x @ weight.T + bias with a torch Linear weight [out, in].
+
+    The product is rounded to x's dtype before the bias is added, as the
+    JAX package's `dense` rounds: `F.linear(x, w, b)` would add the bias
+    inside the product's one rounding, which in bf16 moves outputs by an
+    ulp. The product goes through `F.linear` with a zero bias, which
+    rounds it unchanged: on CUDA that keeps cuBLAS on the kernels it picks
+    for a bias epilogue, faster for the generator's small fp32 matmuls than
+    the ones it picks for a plain product (the served batch's GEMM time in
+    chip_smoke.py's profile)."""
+    w = weight.to(x.dtype)
+    if bias is None:
+        return F.linear(x, w)
+    return F.linear(x, w, _zeros(w.shape[0], x.dtype, x.device)) \
+        + bias.to(x.dtype)
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor,
@@ -51,8 +71,11 @@ def neg_slope(dtype: torch.dtype) -> torch.Tensor:
     tensor is JAX's bf16 product (the exact fp32 product rounded once);
     times the Python float 0.2 it would be the fp32 product by 0.2f
     rounded, another number in about one negative input in five. In fp32
-    both are 0.2f."""
-    return torch.tensor(NEG_SLOPE, dtype=dtype)
+    both are 0.2f. Made outside inference mode, so that autograd may use
+    it wherever it was first asked for (a bf16 Sampler, then a bf16 train
+    step, in one process)."""
+    with torch.inference_mode(False):
+        return torch.tensor(NEG_SLOPE, dtype=dtype)
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:

@@ -44,6 +44,19 @@ over 989 TFLOP/s).
 
 Prints the card's name and power limit, then one JSON line per run and a
 summary line. Exits non-zero if a build, a launch or a check fails.
+
+    python3 gan_codes_tpu_torch/tools/kernel_ab.py --steps PARENT . . PARENT
+
+instead runs, for each root, the fp32 train step of its `chip_smoke.py`
+(256px, batch 24, the seeded state of `_train_setup`) through its kernels
+and through its plain versions, four times each way: G's fakes, the
+phase-1 D gradients from them (and from one fakes tensor twice, D's own
+spread), the whole step from the fresh state and from one shared state a
+kernels step on. One JSON line per comparison: max|err| against max|ref|,
+the D gradient elements under 1e-7, the elements whose first Adam update
+(beta1 0: lr * g / (|g| + eps)) lands over lr/4 apart, and the losses'
+relative gaps, and the G gradients after the step; then each root's fakes
+and phase-1 D gradients (kernels) against the first root's.
 """
 from __future__ import annotations
 
@@ -327,6 +340,156 @@ def run(root: str) -> dict:
     return result
 
 
+def _adam_moves(g_a, g_b, lr: float, eps: float) -> int:
+    """Elements whose first Adam update (beta1 0: lr * g / (|g| + eps))
+    lands more than lr / 4 apart between gradients g_a and g_b."""
+    return sum(int(((a / (a.abs() + eps) - b / (b.abs() + eps)).abs()
+                    * lr > lr / 4).sum()) for a, b in zip(g_a, g_b))
+
+
+def _gap(got, want) -> dict:
+    """max|err| over a list of tensors against max|ref| among them."""
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    top = max(w.abs().max().item() for w in want)
+    return {"max_err": err, "max_ref": top, "ratio": err / top}
+
+
+def run_steps(root: str, out_path: str) -> list:
+    """The fp32 train step of `chip_smoke._train_setup` (256px, batch 24),
+    through the root's kernels and through its plain versions
+    (`chip_smoke._plain_or_kernels`), four times each way in the order
+    kernels, plain: G's fakes (autograd on, as the step makes them), the
+    phase-1 D gradients from them, those gradients again from the first
+    kernels run's fakes (D's own spread), and the whole step from the
+    fresh state and from one shared state one kernels step on. Saves the
+    first fakes of each way, and the first kernels run's D gradients, to
+    out_path."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import chip_smoke as cs
+    import torch
+
+    from gan_codes_tpu_torch.train import losses
+    from gan_codes_tpu_torch.train.checkpoint import (load_state_dict,
+                                                      state_to_dict)
+    from gan_codes_tpu_torch.utils.device import serving_device
+
+    serving_device("cuda")
+    cfg, state, te, step, (images, captions, cap_lens) = cs._train_setup(
+        "float32")
+    lr, eps = cfg.optim.d_lr, cfg.optim.eps
+    noise = torch.randn((cs.TRAIN_BATCH, cfg.generator.latent_dim),
+                        generator=torch.Generator(device="cuda"
+                                                  ).manual_seed(cs.SEED),
+                        device="cuda")
+    with torch.no_grad():
+        sents = te(captions, cap_lens).float()
+    d_params = list(state.discriminator.parameters())
+
+    def d_grads(fake):
+        loss = losses.d_hinge_loss(state.discriminator, images, fake, sents)
+        return [g.detach().clone()
+                for g in torch.autograd.grad(loss, d_params)]
+
+    fakes, grads = {False: [], True: []}, {False: [], True: []}
+    for plain in (False, True) * 4:
+        fake = cs._plain_or_kernels(
+            plain, lambda: state.generator(noise, sents)).detach()
+        fakes[plain].append(fake)
+        grads[plain].append(d_grads(fake))
+    own = d_grads(fakes[False][0])
+    rows = [{"root": root, "what": "fakes", "pair": pair, **_gap(a, b)}
+            for pair, a, b in (
+                ("kernels_vs_kernels", fakes[False][1:], fakes[False][:3]),
+                ("plain_vs_plain", fakes[True][1:], fakes[True][:3]),
+                ("kernels_vs_plain", fakes[False], fakes[True]))]
+    k, p = grads[False], grads[True]
+    for pair, a, b in (("same_fakes", own, k[0]),
+                       ("kernels_vs_kernels", k[1], k[0]),
+                       ("plain_vs_plain", p[1], p[0]),
+                       ("kernels_vs_plain", k[0], p[0])):
+        rows.append({"root": root, "what": "phase1_d_grads", "pair": pair,
+                     **_gap(a, b), "adam_moves_over_lr_4":
+                     _adam_moves(a, b, lr, eps),
+                     "elements_under_1e-7": sum(
+                         int((x.abs() < 1e-7).sum()) for x in b),
+                     "elements": sum(x.numel() for x in b)})
+    torch.save({"kernels": fakes[False][0].cpu(),
+                "plain": fakes[True][0].cpu(),
+                "d_grads": [g.cpu() for g in grads[False][0]],
+                "lr": lr, "eps": eps}, out_path)
+    del fakes, grads, k, p, own, state, step
+
+    _, state, te, step, batch = cs._train_setup("float32")
+    step(state, te, *batch, noise=noise)
+    warm = cs._snapshot(state_to_dict(state))
+    del state
+    for which in ("first", "second"):
+        runs = []
+        for plain in (False, True, False, True):
+            _, state, te, step, batch = cs._train_setup("float32")
+            if which == "second":
+                load_state_dict(state, cs._snapshot(warm))
+            m = cs._plain_or_kernels(plain, lambda: step(state, te, *batch,
+                                                         noise=noise))
+            runs.append(({k: m[k].item() for k in
+                          ("d_loss", "d_gp_loss", "g_loss")},
+                         [p.detach().clone() for p in
+                          state.discriminator.parameters()],
+                         [p.grad.detach().clone() for p in
+                          state.generator.parameters()]))
+            del state, step
+        for (i, j), pair in (((2, 0), "kernels_vs_kernels"),
+                             ((3, 1), "plain_vs_plain"),
+                             ((0, 1), "kernels_vs_plain")):
+            (li, di, gi), (lj, dj, gj) = runs[i], runs[j]
+            rows.append({"root": root, "what": f"step_{which}", "pair": pair,
+                         "losses": [li, lj],
+                         "rel_gap": {k: abs(li[k] - lj[k]) / abs(lj[k])
+                                     for k in li},
+                         "d_params_over_lr_4": sum(
+                             int(((a - b).abs() > lr / 4).sum())
+                             for a, b in zip(di, dj)),
+                         "g_grads": _gap(gi, gj)})
+    return rows
+
+
+def steps(roots) -> int:
+    """`--steps ROOT...`: run_steps for each root in a process of its own,
+    then each root's first fakes against the first root's."""
+    import tempfile
+
+    me = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory() as out_dir:
+        paths = [os.path.join(out_dir, f"fakes_{i}.pt")
+                 for i in range(len(roots))]
+        for root, path in zip(roots, paths):
+            proc = subprocess.run([sys.executable, me, "--one-steps", root,
+                                   path], capture_output=True, text=True)
+            sys.stderr.write(proc.stderr)
+            if proc.returncode != 0:
+                return proc.returncode
+            print(proc.stdout.strip(), flush=True)
+        import torch
+
+        first = torch.load(paths[0])
+        for root, path in zip(roots[1:], paths[1:]):
+            other = torch.load(path)
+            print(json.dumps({"root": os.path.abspath(root),
+                              "what": "against_first_root", **{
+                                  f"fakes_{way}": _gap([other[way]],
+                                                       [first[way]])
+                                  for way in ("kernels", "plain")},
+                              "phase1_d_grads_kernels": {
+                                  **_gap(other["d_grads"], first["d_grads"]),
+                                  "adam_moves_over_lr_4": _adam_moves(
+                                      other["d_grads"], first["d_grads"],
+                                      first["lr"], first["eps"])}}),
+                  flush=True)
+    return 0
+
+
 def main(argv) -> int:
     if len(argv) == 2 and argv[0] in ("--build", "--one"):
         if argv[0] == "--build":
@@ -334,17 +497,24 @@ def main(argv) -> int:
         else:
             print(json.dumps(run(argv[1])), flush=True)
         return 0
-    if not argv:
+    if len(argv) == 3 and argv[0] == "--one-steps":
+        for row in run_steps(argv[1], argv[2]):
+            print(json.dumps(row), flush=True)
+        return 0
+    if not argv or argv == ["--steps"]:
         print(__doc__, file=sys.stderr)
         return 2
+    roots = argv[1:] if argv[0] == "--steps" else argv
     me = os.path.abspath(__file__)
     builds = [subprocess.Popen([sys.executable, me, "--build", r])
-              for r in dict.fromkeys(argv)]
+              for r in dict.fromkeys(roots)]
     if any(p.wait() != 0 for p in builds):
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
+    if argv[0] == "--steps":
+        return steps(roots)
     for i, root in enumerate(argv):
         proc = subprocess.run([sys.executable, me, "--one", root],
                               capture_output=True, text=True)

@@ -11,10 +11,10 @@ On a card: uint8 batches go to the device from pinned memory,
 non-blocking, and are normalized there; the step's metrics stay on the
 device and come back to the host once per epoch. Data order and eval noise
 are keyed to the epoch, so a killed-and-resumed run equals an
-uninterrupted one. IS and FID are not ported yet (ROADMAP Queue 1 item
-10): `evaluate` generates the fakes and records the reference's failure
-sentinels, IS 1.0 and FID inf, as the JAX trainer does without Inception
-weights.
+uninterrupted one. `evaluate` computes IS and FID with the Inception
+weights it was given (`eval/metrics.py`; the fakes, the reals and the
+network stay on the device, the features come back), and records the
+reference's failure sentinels, IS 1.0 and FID inf, without them.
 
 Where the time goes is kept in `self.timers`, the device time of each step
 and of each host-to-device copy (CUDA events on a card), and in
@@ -32,6 +32,8 @@ import numpy as np
 import torch
 
 from ..config import GANConfig
+from ..eval import metrics
+from ..models.inception import inception_to
 from ..utils import image_io
 from ..utils.device import serving_device
 from ..utils.profiling import MetricsLogger, StepTimer
@@ -44,11 +46,12 @@ class Trainer:
     def __init__(self, cfg: GANConfig, text_encoder: torch.nn.Module,
                  checkpoint_dir: str, image_dir: str,
                  code2word: Optional[Dict[int, str]] = None,
-                 seed: Optional[int] = None,
+                 inception_params=None, seed: Optional[int] = None,
                  device: str | torch.device = "cuda"):
         """`text_encoder` maps (captions, cap_lens) to sentence embeddings
-        and is frozen; it is moved to `device` (CUDA unless the caller
-        passes "cpu"; raises without a card)."""
+        and is frozen; it and `inception_params` (`models/inception.py`;
+        None: IS/FID record their sentinels) are moved to `device` (CUDA
+        unless the caller passes "cpu"; raises without a card)."""
         self.device = serving_device(device)
         self.cfg = cfg
         self.image_dir = image_dir
@@ -65,6 +68,11 @@ class Trainer:
                                                     device=self.device)
         self.text_encoder = text_encoder.to(self.device).eval()
         self.text_encoder.requires_grad_(False)
+        self.inception_params = None if inception_params is None \
+            else inception_to(inception_params, self.device)
+        self._use_scipy_sqrtm = cfg.train.eval_sqrtm != "newton_schulz"
+        # (test_loader, real-side stats) for FID, see _cached_real_side()
+        self._real_fid_stats = None
         self._step_fn = make_train_step(cfg)
         self._eval_seed = seed + 1
         self._eval_rng = self._epoch_generator(0)
@@ -191,22 +199,63 @@ class Trainer:
                  ) -> Tuple[float, float, Optional[np.ndarray], object,
                             object]:
         """Per-epoch eval (`model.py:239-280`): generate fakes for up to
-        `eval_max_batches` test batches. IS and FID are not ported yet, so
+        `eval_max_batches` test batches and compute IS and FID against the
+        batches' real images. Without Inception weights, or without data,
         the scores are the reference's failure sentinels (`src/evaluation/
-        metrics.py:58-60,113-118`), IS 1.0 and FID inf. Returns (IS, FID,
-        last fake batch on the host, its captions, its lengths)."""
+        metrics.py:58-60,113-118`), IS 1.0 and FID inf (0.0 would read as
+        a perfect FID). Returns (IS, FID, last fake batch on the host, its
+        captions, its lengths)."""
+        reals, fakes = [], []
         last = None
         for i, batch in enumerate(test_loader):
             if i >= self.cfg.train.eval_max_batches:
                 break
             fake = self.generate(batch["captions"], batch["cap_lens"],
                                  use_ema=use_ema)
+            if self.inception_params is not None:  # reals only for FID
+                reals.append(self._device_batch(batch)[0])
+                fakes.append(fake)
             last = (fake, batch["captions"], batch["cap_lens"])
         if last is None:
             return 1.0, float("inf"), None, None, None
+        is_score, fid_score = 1.0, float("inf")
+        if self.inception_params is not None:
+            real_all = torch.cat(reals)
+            is_score, fid_score = metrics.compute_is_fid(
+                self.inception_params, torch.cat(fakes), real_all,
+                real_stats=self._cached_real_side(test_loader, real_all),
+                use_scipy_sqrtm=self._use_scipy_sqrtm)
+            print(f"Computed IS: {is_score:.4f}, FID: {fid_score:.4f}")
         fake, captions, cap_lens = last
-        return 1.0, float("inf"), fake.float().cpu().numpy(), captions, \
+        return is_score, fid_score, fake.float().cpu().numpy(), captions, \
             cap_lens
+
+    def _cached_real_side(self, test_loader, real_all: torch.Tensor):
+        """The real side's (mu, sigma, acts) for FID, computed once per
+        loader when its images are the same every epoch: unshuffled and
+        un-augmented (augmentation redraws per-item seeds each epoch).
+        Keyed on the loader object, so another test loader does not reuse
+        this one's stats. None when caching does not apply (compute_fid
+        then computes the real side itself)."""
+        deterministic = (
+            getattr(test_loader, "shuffle", True) is False
+            and getattr(getattr(test_loader, "dataset", None),
+                        "augment", True) is False)
+        if not deterministic:
+            return None
+        cached = self._real_fid_stats
+        if cached is None or cached[0] is not test_loader:
+            try:
+                # the activations ride along, so compute_fid takes its
+                # exact low-rank cross term every epoch
+                payload = metrics.activation_stats(
+                    self.inception_params, real_all, return_acts=True)
+            except FloatingPointError:
+                # a deterministic loader gives the same NaN next epoch:
+                # cache the miss; compute_fid trips its own inf sentinel
+                payload = None
+            self._real_fid_stats = (test_loader, payload)
+        return self._real_fid_stats[1]
 
     def _save_samples(self, fake, captions, cap_lens, epoch: int) -> None:
         """Per-epoch image dumps (`model.py:329-387`): the PNG grid, then

@@ -10,11 +10,13 @@ per-epoch metric table. Paths and hyperparameters come from flags:
         --weights gen_weights [--device cpu]
 
 It runs on CUDA unless `--device cpu` is given, and raises without a
-card. Not ported yet: IS/FID (`--inception` raises; ROADMAP Queue 1 item
-10), data parallelism (`--dp`, `--multihost`; item 12) and the JAX
-package's TPU dispatch knobs, which are exact math and have no meaning
-here (`--steps-per-dispatch`, `--device-prefetch`, `--compile-cache`,
-`--xla-vmem-kib`, the lane and image padding, the mesh layouts).
+card. `--inception` names a torchvision InceptionV3 `state_dict` file for
+the per-epoch IS/FID; without it they record the sentinels IS 1.0 / FID
+inf. Not ported yet: data parallelism (`--dp`, `--multihost`; ROADMAP
+Queue 1 item 12). Not ported: the JAX package's TPU dispatch knobs,
+which are exact math and have no meaning here (`--steps-per-dispatch`,
+`--device-prefetch`, `--compile-cache`, `--xla-vmem-kib`, the lane and
+image padding, the mesh layouts).
 """
 from __future__ import annotations
 
@@ -27,16 +29,12 @@ import torch
 from .config import DataConfig, GANConfig
 from .data.dataset import CUBDataset
 from .data.loader import DataLoader
+from .models.inception import load_torch_inception
 from .models.text_encoder import RNNEncoder
 from .models.torch_import import load_text_encoder
 from .train.trainer import Trainer
 from .utils.device import serving_device
 from .utils.seeding import fix_seed
-
-INCEPTION_NOT_PORTED = (
-    "IS/FID are not ported to the PyTorch package yet (ROADMAP.md Queue 1 "
-    "item 10: models/inception.py and eval/metrics.py); train without "
-    "--inception, and the trainer records the sentinels IS 1.0 / FID inf")
 
 
 def train(data_path: str, encoder_weights_path: Optional[str],
@@ -49,11 +47,10 @@ def train(data_path: str, encoder_weights_path: Optional[str],
           gp_compute_dtype: str = "float32", eval_use_ema: bool = False,
           gp_interval: int = 1, ckpt_every: int = 1, n_channels: int = 32,
           eval_augment: bool = False, log_every_steps: int = 0,
-          eval_every: int = 1, device: str | torch.device = "cuda"):
+          eval_every: int = 1, eval_sqrtm: str = "scipy",
+          device: str | torch.device = "cuda"):
     """Train (or resume) a DF-GAN on a CUB-format directory; returns the
     metric histories."""
-    if inception_weights_path:
-        raise NotImplementedError(INCEPTION_NOT_PORTED)
     dev = serving_device(device)
     fix_seed(seed, device=dev)
 
@@ -76,7 +73,7 @@ def train(data_path: str, encoder_weights_path: Optional[str],
         batch_size=batch_size, num_epochs=num_epochs, seed=seed,
         compute_dtype=compute_dtype, eval_use_ema=eval_use_ema,
         checkpoint_every_epochs=ckpt_every, log_every_steps=log_every_steps,
-        eval_every_epochs=eval_every)
+        eval_every_epochs=eval_every, eval_sqrtm=eval_sqrtm)
 
     train_loader = DataLoader(train_ds, batch_size, seed=seed)
     test_loader = DataLoader(test_ds, batch_size, shuffle=False, seed=seed)
@@ -89,10 +86,16 @@ def train(data_path: str, encoder_weights_path: Optional[str],
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             text_encoder = RNNEncoder(cfg.text_encoder)
-    print("Warning: no Inception weights; IS/FID disabled")
+    inception_params = None
+    if inception_weights_path and os.path.exists(inception_weights_path):
+        inception_params = load_torch_inception(inception_weights_path)
+    else:
+        print("Warning: no Inception weights; IS/FID disabled")
 
     trainer = Trainer(cfg, text_encoder, gen_path_save, image_save_path,
-                      code2word=train_ds.code2word, seed=seed, device=dev)
+                      code2word=train_ds.code2word,
+                      inception_params=inception_params, seed=seed,
+                      device=dev)
     try:
         histories = trainer.fit(train_loader, test_loader,
                                 num_epochs=num_epochs, auto_resume=True)
@@ -116,7 +119,8 @@ def main(argv: Optional[Sequence[str]] = None):
     p.add_argument("--data", required=True)
     p.add_argument("--text-encoder", default=None)
     p.add_argument("--inception", default=None,
-                   help="not ported yet: raises (ROADMAP Queue 1 item 10)")
+                   help="torchvision InceptionV3 state_dict (.pth) for the "
+                        "per-epoch IS/FID (absent: IS 1.0 / FID inf)")
     p.add_argument("--images", default="gen_images")
     p.add_argument("--weights", default="gen_weights")
     p.add_argument("--image-size", type=int, default=256)
@@ -153,6 +157,12 @@ def main(argv: Optional[Sequence[str]] = None):
                    help="run eval + sample dumps every N epochs (last epoch "
                         "always; skipped epochs log the reference sentinels "
                         "IS 1.0 / FID inf). 0 = final epoch only")
+    p.add_argument("--eval-sqrtm", default="scipy",
+                   choices=["scipy", "newton_schulz"],
+                   help="FID matrix square root where the exact low-rank "
+                        "path does not apply (more than 2048 eval images a "
+                        "side): scipy on the host (the reference's path) or "
+                        "Newton-Schulz in float64 on the device")
     p.add_argument("--log-every-steps", type=int, default=0,
                    help="also write every Nth step's loss scalars as "
                         "kind='step' JSONL rows (0 = per-epoch rows only; "
@@ -167,7 +177,7 @@ def main(argv: Optional[Sequence[str]] = None):
                  ckpt_every=a.ckpt_every, n_channels=a.n_channels,
                  eval_augment=a.eval_augment,
                  log_every_steps=a.log_every_steps, eval_every=a.eval_every,
-                 device=a.device)
+                 eval_sqrtm=a.eval_sqrtm, device=a.device)
 
 
 if __name__ == "__main__":

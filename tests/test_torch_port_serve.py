@@ -29,7 +29,7 @@ from gan_codes_tpu.models.text_encoder import init_text_encoder
 from gan_codes_tpu.serve import Sampler as JaxSampler
 from gan_codes_tpu.utils import image_io as jimage_io
 from gan_codes_tpu_torch import config as pcfg
-from gan_codes_tpu_torch import generate, serve, train_entry
+from gan_codes_tpu_torch import generate, sample, serve, train_entry
 from gan_codes_tpu_torch.models.generator import Generator
 from gan_codes_tpu_torch.models.text_encoder import RNNEncoder
 from gan_codes_tpu_torch.models.torch_import import (
@@ -338,6 +338,68 @@ class TestServeMain:
             serve.build_sampler(*args, device="cpu")
 
 
+class TestGenerateAndSample:
+    def test_generate_main_with_prompt(self, tmp_path, capsys):
+        """`generate.main` through its CLI with --prompt on reference-format
+        files: the newest gen_N.pth (gen_3; gen_1 is older and empty)
+        gives `generate_from_prompt`'s image as a PNG; --ema takes
+        gen_ema_3.pth instead; an empty prompt writes nothing."""
+        args = _write_reference_files(str(tmp_path))
+        torch.save({}, os.path.join(args[2], "gen_1.pth"))
+        cfg = pcfg.GANConfig.for_image_size(16, n_channels=4,
+                                            vocab_size=len(WORD2CODE))
+        g, te = _modules(cfg)
+        ema, _ = _modules(cfg, seed=1)
+        torch.save(ema.state_dict(), os.path.join(args[2], "gen_ema_3.pth"))
+        cli = ["--data", args[0], "--text-encoder", args[1], "--weights",
+               args[2], "--prompt", "a red bird", "--device", "cpu"]
+        pixels = []
+        for model, extra in ((g, []), (ema, ["--ema"])):
+            out = str(tmp_path / f"out{len(pixels)}")
+            path = generate._cli(cli + ["--out", out] + extra)
+            assert path == os.path.join(out, "sample_from_prompt.png")
+            assert f"saved to {path}" in capsys.readouterr().out
+            want = generate.generate_from_prompt(
+                "a red bird", model.eval(), te.eval(), cfg, WORD2CODE,
+                device="cpu")
+            got = np.asarray(Image.open(path))
+            np.testing.assert_array_equal(
+                got, image_io.denormalize_to_uint8(want))
+            pixels.append(got)
+        assert not np.array_equal(*pixels)
+        assert generate.main(*args, str(tmp_path / "none"), prompt="",
+                             device="cpu") is None
+        assert not os.path.exists(tmp_path / "none")
+
+    def test_sample_writes_one_png_per_item(self, tmp_path):
+        """`sample.sample`: one PNG per batch item, named after its file
+        name ('/'-safe), the denormalized G output for noise from the
+        given torch.Generator; the same seed gives the same images."""
+        cfg = _small_cfg(pcfg)
+        g, te = _modules(cfg)
+        g, te = g.eval(), te.eval()
+        batch = {"captions": np.asarray([[2, 3, 0, 0, 0, 0],
+                                         [4, 2, 3, 1, 0, 0]]),
+                 "cap_lens": np.asarray([2, 4]),
+                 "file_names": ["001.Black_Bird/a", "002.Red_Bird/b"]}
+        paths = sample.sample(g, te, cfg, batch, str(tmp_path / "s"),
+                              rng=torch.Generator().manual_seed(3),
+                              device="cpu")
+        assert [os.path.basename(p) for p in paths] == [
+            "001.Black_Bird_a.png", "002.Red_Bird_b.png"]
+        with torch.no_grad():
+            sents = te(torch.as_tensor(batch["captions"]),
+                       torch.as_tensor(batch["cap_lens"]))
+            want = sample.generate_images(
+                g, cfg, sents, torch.Generator().manual_seed(3)).numpy()
+        for path, img in zip(paths, want):
+            np.testing.assert_array_equal(np.asarray(Image.open(path)),
+                                          image_io.denormalize_to_uint8(img))
+        again = sample.sample(g, te, cfg, batch, str(tmp_path / "t"),
+                              rng=torch.Generator().manual_seed(3),
+                              device="cpu")
+        assert open(again[1], "rb").read() == open(paths[1], "rb").read()
+
 class TestPortPromises:
     def test_port_imports_no_jax(self):
         """Every module of the package, and chip_smoke.py, imported in a
@@ -373,6 +435,10 @@ class TestPortPromises:
             lambda: serve.main(*args, str(tmp_path / "o"), ["a bird"]),
             lambda: generate.generate_from_prompt("a bird", g, te, cfg,
                                                   WORD2CODE),
+            lambda: generate.main(*args, str(tmp_path / "o"), "a bird"),
+            lambda: sample.sample(g, te, cfg, {
+                "captions": np.ones((1, 6)), "cap_lens": np.ones(1),
+                "file_names": ["x"]}, str(tmp_path / "o")),
             lambda: serve._cli(["--data", args[0], "--text-encoder", args[1],
                                 "--weights", args[2], "--out",
                                 str(tmp_path / "o"), "a bird"]),

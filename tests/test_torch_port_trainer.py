@@ -9,6 +9,7 @@ the trainer uses (jsonio, the metrics log, the step timer, image dumps).
 import dataclasses
 import json
 import os
+import types
 
 import numpy as np
 import pytest
@@ -18,15 +19,19 @@ from gan_codes_tpu import config as jcfg
 from gan_codes_tpu import data as jdata
 from gan_codes_tpu.utils import image_io as jimage_io
 from gan_codes_tpu.utils import jsonio as jjsonio
+from gan_codes_tpu.utils import plotting as jplotting
 from gan_codes_tpu_torch import config as pcfg
 from gan_codes_tpu_torch import data as pdata
 from gan_codes_tpu_torch import serve, train_entry
+from gan_codes_tpu_torch.eval import metrics
+from gan_codes_tpu_torch.models.inception import (
+    init_inception, random_torchvision_state_dict)
 from gan_codes_tpu_torch.models.text_encoder import RNNEncoder
 from gan_codes_tpu_torch.train import checkpoint as pckpt
 from gan_codes_tpu_torch.train.state import create_train_state
 from gan_codes_tpu_torch.train.step import make_train_step
 from gan_codes_tpu_torch.train.trainer import Trainer
-from gan_codes_tpu_torch.utils import image_io, jsonio, profiling
+from gan_codes_tpu_torch.utils import image_io, jsonio, plotting, profiling
 
 
 @pytest.fixture(scope="module")
@@ -258,12 +263,39 @@ class TestTrainEntry:
         assert images.shape == (3, 32, 32, 3)
         assert np.isfinite(images).all()
 
-    def test_inception_raises(self, cub, tmp_path):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            train_entry.main(["--data", cub, "--inception", "x.pth",
-                              "--device", "cpu", "--weights",
-                              str(tmp_path / "w")])
-        assert not os.path.exists(tmp_path / "w")
+    def test_inception_records_finite_is_and_fid(self, cub, tmp_path):
+        """`--inception` with a seeded random torchvision-layout .pth: a
+        one-epoch 32px run on the CPU records a finite IS >= 1 and a finite
+        FID (the low-rank cross term, 4 images a side) in
+        metrics_log.jsonl; `--eval-sqrtm` reaches config.json."""
+        path = str(tmp_path / "inception.pth")
+        torch.save(random_torchvision_state_dict(
+            torch.Generator().manual_seed(1)), path)
+        hist = train_entry.main([
+            "--data", cub, "--inception", path, "--device", "cpu",
+            "--image-size", "32", "--batch-size", "4", "--epochs", "1",
+            "--n-channels", "8", "--seed", "5", "--eval-sqrtm",
+            "newton_schulz", "--weights", str(tmp_path / "w"),
+            "--images", str(tmp_path / "i")])
+        with open(tmp_path / "w" / "metrics_log.jsonl") as f:
+            rows = [json.loads(line) for line in f]
+        assert len(rows) == 1
+        is_score, fid = rows[0]["is_score"], rows[0]["fid_score"]
+        assert np.isfinite(is_score) and is_score >= 1.0
+        assert isinstance(fid, float) and np.isfinite(fid) and fid > 0
+        assert hist["is_scores"] == [is_score]
+        assert hist["fid_scores"] == [fid]
+        with open(tmp_path / "w" / "config.json") as f:
+            assert json.load(f)["train"]["eval_sqrtm"] == "newton_schulz"
+
+
+class _Loader(list):
+    """A test loader: its batches, `shuffle`, and `dataset.augment`."""
+    shuffle = False
+
+    def __init__(self, batches, augment=False):
+        super().__init__(batches)
+        self.dataset = types.SimpleNamespace(augment=augment)
 
 
 class TestTrainer:
@@ -350,6 +382,77 @@ class TestTrainer:
         trainer.close()
 
 
+    @staticmethod
+    def _eval_batches(n):
+        rng = np.random.default_rng(6)
+        return [{"images": rng.integers(0, 256, (2, 16, 16, 3), np.uint8),
+                 "captions": rng.integers(1, 20, (2, 6), np.int32),
+                 "cap_lens": np.asarray([6, 3], np.int32)}
+                for _ in range(n)]
+
+    def test_evaluate_scores_equal_compute_is_fid(self, tmp_path):
+        """With Inception weights, `evaluate` over a loader of 3 batches
+        (eval_max_batches 2) gives the scores of `compute_is_fid` on the
+        same 4 fakes (the epoch's eval noise) and 4 normalized reals,
+        exactly; it returns the last fake batch."""
+        cfg = _small_cfg(eval_max_batches=2)
+        params = init_inception(torch.Generator().manual_seed(0))
+        trainer = Trainer(cfg, _text_encoder(cfg), str(tmp_path / "w"),
+                          str(tmp_path / "i"), inception_params=params,
+                          device="cpu")
+        batches = self._eval_batches(3)
+        trainer._eval_rng = trainer._epoch_generator(0)
+        is_score, fid, fake, caps, _ = trainer.evaluate(_Loader(batches))
+        trainer._eval_rng = trainer._epoch_generator(0)
+        fakes = torch.cat([trainer.generate(b["captions"], b["cap_lens"])
+                           for b in batches[:2]])
+        reals = torch.cat([torch.from_numpy(b["images"]).float() / 127.5
+                           - 1.0 for b in batches[:2]])
+        want = metrics.compute_is_fid(params, fakes, reals)
+        assert np.isfinite(fid) and is_score >= 1.0
+        assert (is_score, fid) == want
+        np.testing.assert_array_equal(fake, fakes[2:].numpy())
+        np.testing.assert_array_equal(caps, batches[1]["captions"])
+        trainer.close()
+
+    @pytest.mark.parametrize("augment", [False, True])
+    def test_real_side_computed_once_for_a_deterministic_loader(
+            self, tmp_path, monkeypatch, augment):
+        """Two evaluations on one unshuffled, un-augmented loader compute
+        the real side's stats once and give the same scores; an augmented
+        loader recomputes it each time; another loader object does not
+        reuse the cache. The network is replaced by cheap functions of
+        the pixels."""
+        calls = []
+        stats = metrics.activation_stats
+
+        def spy(params, images, *a, **k):
+            calls.append(images.shape[0])
+            return stats(params, images, *a, **k)
+
+        monkeypatch.setattr(metrics, "activation_stats", spy)
+        monkeypatch.setattr(metrics, "_features_batch",
+                            lambda p, im: im.reshape(im.shape[0], -1)[:, :64])
+        monkeypatch.setattr(metrics, "_logits_batch", lambda p, im: (
+            torch.softmax(im.reshape(im.shape[0], -1)[:, :10], dim=1)))
+        cfg = _small_cfg()
+        trainer = Trainer(cfg, _text_encoder(cfg), str(tmp_path / "w"),
+                          str(tmp_path / "i"),
+                          inception_params={"fc": {"w": torch.zeros(1)}},
+                          device="cpu")
+        loader = _Loader(self._eval_batches(2), augment=augment)
+        scores = []
+        for _ in range(2):
+            trainer._eval_rng = trainer._epoch_generator(0)
+            scores.append(trainer.evaluate(loader)[:2])
+        assert scores[0] == scores[1] and np.isfinite(scores[0][1])
+        # per evaluation one call for the fakes, plus the reals' when
+        # they are not cached
+        assert len(calls) == (4 if augment else 3)
+        trainer.evaluate(_Loader(self._eval_batches(2), augment=augment))
+        assert len(calls) == (6 if augment else 5)
+        trainer.close()
+
 class TestUtils:
     def test_jsonio_matches_jax(self):
         obj = {"a": [1.0, float("inf"), float("-inf")], "b": float("nan"),
@@ -396,3 +499,18 @@ class TestUtils:
         path = image_io.save_images_with_prompts(
             images, ["a", "b"], str(tmp_path / "p.jpg"))
         assert os.path.getsize(path) > 0
+
+    def test_plots_equal_jax_bytes(self, tmp_path):
+        """plot_losses and plot_metrics write the JAX package's PNGs, byte
+        for byte."""
+        losses = ([1.0, 0.8, 0.7], [2.0, 1.5, 1.2], [0.1, 0.05, 0.02])
+        metric = ([300.0, 250.0, 240.0], [1.5, 2.0, 2.4])
+        for mod, name in ((plotting, "port"), (jplotting, "jax")):
+            assert mod.plot_losses(*losses, path_save=str(
+                tmp_path / f"{name}_l.png")).endswith("_l.png")
+            mod.plot_metrics(*metric, epochs=[1, 2, 3],
+                             path_save=str(tmp_path / f"{name}_m.png"))
+        for kind in ("l", "m"):
+            port = (tmp_path / f"port_{kind}.png").read_bytes()
+            assert port[:8] == b"\x89PNG\r\n\x1a\n"
+            assert port == (tmp_path / f"jax_{kind}.png").read_bytes()
