@@ -54,28 +54,33 @@ Phases (any failed check raises, so the run exits non-zero):
    TRAIN_STEPS steps in float32 (TF32 off) with the launch counters set to
    0 just before and read just after (14 K2, 0 K1, 14 K1 bwd per step),
    then in bfloat16; every metric must be finite. Prints train img/s over
-   two windows of at least TRAIN_WINDOW_S seconds (CUDA events), the peak
+   two windows of at least TRAIN_WINDOW_S seconds (CUDA events; in fp32
+   two more between them on cuDNN's deterministic algorithms), the peak
    device memory, the device time of a step by kernel group
    (torch.profiler) and of each phase apart (CUDA events). From one fp32
    state, held against the same through the plain versions: the phase-3
    G gradients against one D; one whole step, D learning (its losses, its
    phase-1 D gradients and its G gradients); the phase-3 G gradients
-   against the D that step left through the kernels.
+   against the D that step left through the kernels. Runs REPEAT_STEPS
+   fp32 steps twice from one state on cuDNN's default and on its
+   deterministic algorithms: the deterministic runs must leave every
+   parameter equal bit for bit (the default runs' count is printed).
 5. Train entry: writes a synthetic CUB fixture (`make_synthetic_cub`,
    48 train and 24 test images of 256-511 px), a seeded text encoder and
    a seeded random InceptionV3 `.pth` in torchvision's layout (the keys of
    the port's `_conv_specs`, random BN running stats), then runs
    `train_entry.train` with that `.pth` at full width (256px, n_channels
-   32, batch 24, fp32, 2 steps per epoch): run A, 2 epochs uninterrupted;
+   32, batch 24, fp32, 2 steps per epoch, `deterministic`: cuDNN's
+   deterministic algorithms): run A, 2 epochs uninterrupted;
    run B, 1 epoch, then a second call with 2 epochs on the same
    directories, which must print "Resuming from epoch 1". Holds: the
    state B's second call restored equals the state B saved, bit for bit
-   (parameters, EMA, Adam moments, step, RNG); B's second-epoch losses
-   within rtol 1e-3 of A's (cuDNN is not deterministic run to run); the
-   checkpoint files, one metrics row per epoch with a finite IS > 1 and
-   a finite FID (not the sentinels 1.0 and inf), B's second-epoch IS - 1
-   and FID within ENTRY_IS_RTOL and ENTRY_FID_RTOL of A's, and the sample
-   grid; the launch counters rise by 14 K2, 0 K1 and 14 K1 bwd per step
+   (parameters, EMA, Adam moments, step, RNG); B's second-epoch losses,
+   IS and FID equal to A's bit for bit (with cuDNN's default algorithms
+   the runs drift apart from the last bit, and the resumed losses have
+   differed from A's by 5%); the checkpoint files, one metrics row per
+   epoch with a finite IS > 1 and a finite FID (not the sentinels 1.0 and
+   inf), and the sample grid; the launch counters rise by 14 K2, 0 K1 and 14 K1 bwd per step
    plus 14 K2 and 0 K1 per eval batch; `build_sampler` serves B's
    `gen_1.pth` over HTTP. Prints the trainer's img/s with the device time
    of its steps and copies and the host's data wait, eval and checkpoint
@@ -97,7 +102,30 @@ Phases (any failed check raises, so the run exits non-zero):
    epoch (368 steps at phase 4's img/s). Holds the card against
    the CPU: the features and softmax of 8 images, and IS/FID over
    EVAL_SUBSET images a side (the low-rank cross term taken on both).
-7. Prints one {"kernels": [...]} line, the nvidia-smi line, and, last,
+7. Data parallelism (`gan_codes_tpu_torch/parallel/`). (a) The production
+   path at world size 1 over NCCL: `train_entry --dp` in a child process
+   (this script with `--dp-entry-child`) with a torchrun environment
+   (RANK 0, WORLD_SIZE 1), on phase 5's data, text encoder and Inception
+   `.pth` with run A's flags (256px, n_channels 32, batch 24, fp32 with
+   TF32 off, deterministic cuDNN, 2 epochs), under torch.profiler. Holds: its losses within
+   rtol 1e-3 and its IS - 1 and FID within ENTRY_IS_RTOL and
+   ENTRY_FID_RTOL of run A's (the same data, seed and flags in another
+   process), the launch counters (14 K2, 0 K1 and 14 K1 bwd a step, 14 K2
+   an eval batch), and the collectives the parallel module counted: 4
+   all-reduces a step (the next rank's sentence, then phase 1's, phase 2's
+   and phase 3's gradients with their losses) and 1 in `replicate`. Prints
+   the DP step's img/s (its CUDA-event step timers) beside run A's and the
+   bare step's, and the device time of the NCCL kernels. (b) Two ranks on
+   the one card over gloo (NCCL refuses two ranks on one device),
+   `gan_codes_tpu_torch/tools/dp_check.py`: one step from one state at
+   256px, local batch 12 + 12, against the single-process step on the
+   global batch of 24 (the same noise rows, drawn at the global batch):
+   d_loss within rtol 1e-4, the reduced phase-1 D and phase-3 G gradients
+   within 1e-3 of max|ref|, the ranks' states equal bit for bit; the
+   moment-reduced IS/FID over 2 x 24 fakes against `compute_is_fid` on
+   the 48 (IS - 1 within 1e-2, FID within 1e-5, relative). Prints its
+   wall time.
+8. Prints one {"kernels": [...]} line, the nvidia-smi line, and, last,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -128,8 +156,9 @@ GRAPH_CALLS = 20                 # K1 calls captured in one CUDA graph
 TRAIN_BATCH = 24                 # the JAX package's TrainConfig default
 TRAIN_STEPS = 3                  # counted steps per dtype (main path)
 TRAIN_WINDOW_S = 3.5             # seconds per train throughput window
+REPEAT_STEPS = 2                 # steps a run of the repeatability check
 ENTRY_TRAIN, ENTRY_TEST = 48, 24  # synthetic CUB images for the train entry
-ENTRY_IS_RTOL = 2e-2             # resumed B's epoch-2 IS - 1 against A's
+ENTRY_IS_RTOL = 2e-2             # phase 7a's IS - 1 against run A's
 ENTRY_FID_RTOL = 5e-6            # and its FID
 EVAL_BATCHES = 32                # the reference's eval_max_batches (x 24)
 EVAL_SUBSET = 48                 # images a side, IS/FID card against CPU
@@ -188,10 +217,11 @@ H100_TF32_TENSOR_FLOPS = 495e12  # dense tensor cores; K2's fp32 runs
 #   of IS is 8e-4 of that. H100 readings (PR 7): IS - 1 gap 0, FID
 #   5.7e-7 to 5.9e-7; the same limits hold a second evaluation (real side
 #   cached) and the evaluation in parts against the first (readings 0).
-#   Phase 5's resumed run B scores epoch 2 with IS - 1 within
-#   ENTRY_IS_RTOL and FID within ENTRY_FID_RTOL of run A (its G differs as
-#   its losses do; readings: IS 0 to 2 ulps, 1.6e-3 of IS - 1; FID 7.4e-8
-#   to 2.9e-7).
+#   Phase 7a's DP run scores its epochs with IS - 1 within ENTRY_IS_RTOL
+#   and FID within ENTRY_FID_RTOL of phase 5's run A (its G differs as its
+#   losses do, by the rounding of the DP forms' sums; before phase 5 ran
+#   on cuDNN's deterministic algorithms, the resumed run B's readings
+#   against A: IS 0 to 2 ulps, 1.6e-3 of IS - 1; FID 7.4e-8 to 2.9e-7).
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -882,6 +912,8 @@ def serve(root: str, k2_per_forward: int, k1_per_forward: int):
 
 def _group(name: str) -> str:
     low = name.lower()
+    if "nccl" in low:
+        return "NCCL collectives"
     if "fused_modconv3x3" in name:  # the conv, its weight pack, split K
         return "K2 fused_modconv3x3"
     if "fused_affine_fwd_kernel" in name:
@@ -907,11 +939,12 @@ def _group(name: str) -> str:
     return "other elementwise"
 
 
-def _profile(fn, n: int):
+def _profile(fn, n: int, by_name: bool = False):
     """Device time per kernel group and per kernel name over `n` calls of
     `fn`, and the device's idle share of the span from the first kernel to
     the last (torch.profiler, CUPTI). None when no device event was
-    recorded."""
+    recorded. With `by_name`, `out["by_name"]` holds every kernel name's
+    launches and device ms a call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -931,11 +964,12 @@ def _profile(fn, n: int):
         log("[profile] the profiler recorded no device events: device time "
             "by kernel not measured")
         return None
-    groups, names = {}, {}
+    groups, names, launches = {}, {}, {}
     for e in events:
         us = e.time_range.end - e.time_range.start
         groups[_group(e.name)] = groups.get(_group(e.name), 0.0) + us
         names[e.name] = names.get(e.name, 0.0) + us
+        launches[e.name] = launches.get(e.name, 0) + 1
     busy = sum(groups.values())
     span = (max(e.time_range.end for e in events)
             - min(e.time_range.start for e in events))
@@ -945,6 +979,9 @@ def _profile(fn, n: int):
            "idle_share": 1.0 - busy / span,
            "ms_per_call": {k: v / n / 1e3 for k, v in
                            sorted(groups.items(), key=lambda kv: -kv[1])}}
+    if by_name:
+        out["by_name"] = {k: [launches[k] / n, us / n / 1e3]
+                          for k, us in names.items()}
     top = [(name, us / n / 1e3) for name, us in
            sorted(names.items(), key=lambda kv: -kv[1])[:12]]
     return out, top
@@ -1052,29 +1089,43 @@ def train():
             if not all(np.isfinite(v) for v in r.values()):
                 raise AssertionError(f"non-finite metrics at step {i}: {r}")
 
-        # throughput: two windows of >= 3 s each, CUDA events
+        # throughput: two windows of >= 3 s each, CUDA events; in fp32 two
+        # more between them on cuDNN's deterministic algorithms (what
+        # train_entry's `deterministic` costs)
         t0 = time.perf_counter()
         step(state, te, *batch)
         torch.cuda.synchronize()
         n = max(3, int(np.ceil(TRAIN_WINDOW_S / (time.perf_counter() - t0))))
         torch.cuda.reset_peak_memory_stats()
-        windows = []
-        for _ in range(2):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(n):
-                step(state, te, *batch)
-            end.record()
-            end.synchronize()
-            windows.append(n * TRAIN_BATCH / (start.elapsed_time(end) / 1e3))
+        windows = {False: [], True: []}
+        for det in ((False, True, True, False) if dtype == "float32"
+                    else (False, False)):
+            torch.backends.cudnn.deterministic = det
+            try:
+                step(state, te, *batch)  # cuDNN picks its algorithms
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(n):
+                    step(state, te, *batch)
+                end.record()
+                end.synchronize()
+            finally:
+                torch.backends.cudnn.deterministic = False
+            windows[det].append(n * TRAIN_BATCH
+                                / (start.elapsed_time(end) / 1e3))
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        numbers[f"img_per_s_{dtype}"] = windows
+        numbers[f"img_per_s_{dtype}"] = windows[False]
         numbers[f"peak_gib_{dtype}"] = peak
-        log(f"[train] {dtype} throughput, 2 windows of {n} steps "
-            f"({n * TRAIN_BATCH / min(windows):.1f} s at most): "
-            f"{', '.join(f'{v:.2f}' for v in windows)} img/s; peak memory "
-            f"{peak:.2f} GiB")
+        det_text = ""
+        if windows[True]:
+            numbers[f"img_per_s_{dtype}_deterministic"] = windows[True]
+            det_text = (f"; deterministic cuDNN "
+                        f"{', '.join(f'{v:.2f}' for v in windows[True])}")
+        log(f"[train] {dtype} throughput, windows of {n} steps "
+            f"({n * TRAIN_BATCH / min(windows[False]):.1f} s at most): "
+            f"{', '.join(f'{v:.2f}' for v in windows[False])} img/s"
+            f"{det_text}; peak memory {peak:.2f} GiB")
         res = _profile(lambda: step(state, te, *batch), 2)
         if res is not None:
             out, top = res
@@ -1181,6 +1232,7 @@ def train():
             p.copy_(dp_k[name])
     learned_d = phase3_gap(state, "the D one kernels step left")
     del state, step
+    numbers["repeat"] = _repeatability()
     numbers["vs_plain"] = {"kernels": m_k, "plain": m_p,
                            "loss_rel_gaps": loss_gaps,
                            "d_params_over_lr_4": moved,
@@ -1188,6 +1240,39 @@ def train():
                            "one_d_g_grads": one_d,
                            "learned_d_g_grads": learned_d}
     return counts, numbers
+
+
+def _repeatability() -> dict:
+    """REPEAT_STEPS fp32 steps, twice from one seeded state, on cuDNN's
+    default and on its deterministic algorithms: the G and D parameters
+    that differ between the two runs. Holds none for the deterministic
+    ones (train_entry's `deterministic`, which phases 5 and 7a run)."""
+    import torch
+
+    out = {}
+    for det in (False, True):
+        torch.backends.cudnn.deterministic = det
+        try:
+            runs = []
+            for _ in range(2):
+                _, state, te, step, batch = _train_setup("float32")
+                for _ in range(REPEAT_STEPS):
+                    step(state, te, *batch)
+                runs.append([p.detach().clone() for m in (
+                    state.generator, state.discriminator)
+                    for p in m.parameters()])
+                del state, step
+        finally:
+            torch.backends.cudnn.deterministic = False
+        out["deterministic" if det else "default"] = [
+            sum(not torch.equal(a, b) for a, b in zip(*runs)), len(runs[0])]
+    log(f"[train] {REPEAT_STEPS} fp32 steps twice from one state, parameters "
+        f"that differ [n, of]: cuDNN default {out['default']}, "
+        f"deterministic {out['deterministic']}")
+    if out["deterministic"][0]:
+        raise AssertionError(f"deterministic cuDNN: {out['deterministic']} "
+                             "parameters differ run to run")
+    return out
 
 
 def _grad_gap(got: dict, want: dict) -> dict:
@@ -1372,7 +1457,8 @@ def train_entry_phase(root: str, bare_img_s: float, inception_path: str):
     def run(name: str, epochs: int):
         kw = dict(image_size=256, batch_size=TRAIN_BATCH, num_epochs=epochs,
                   seed=SEED, n_channels=32, compute_dtype="float32",
-                  inception_weights_path=inception_path, device="cuda")
+                  inception_weights_path=inception_path, device="cuda",
+                  deterministic=True)
         tee = _Tee(sys.stdout)
         k2.launches = k1.launches = k1b.launches = 0  # main path starts
         t = time.perf_counter()
@@ -1417,17 +1503,16 @@ def train_entry_phase(root: str, bare_img_s: float, inception_path: str):
     log(f"[entry] run B restored its saved state bit for bit: step "
         f"{saved_b['step']}, {n_tensors} tensors (G, D, EMA, both Adam "
         f"states, RNG)")
-    gaps = {}
-    for key in ("g_losses", "d_losses", "d_gp_losses", "txtimg_losses"):
+    for key in ("g_losses", "d_losses", "d_gp_losses", "txtimg_losses",
+                "is_scores", "fid_scores"):
         a, b = hist_a[key][1], hist_b2[key][1]
-        gaps[key] = abs(a - b) / max(abs(a), 1e-30)
-        if not np.isclose(b, a, rtol=1e-3, atol=0.0):
+        if b != a:
             raise AssertionError(f"epoch 2 {key}: run A {a}, resumed run B "
-                                 f"{b}")
-        if not (np.isfinite(a) and np.isfinite(b)):
-            raise AssertionError(f"epoch 2 {key} not finite: {a} {b}")
-    log(f"[entry] epoch 2, resumed B against uninterrupted A: relative gaps "
-        f"{json.dumps(gaps)}; A {json.dumps({k: v[1] for k, v in hist_a.items()})}")
+                                 f"{b} (deterministic cuDNN: bit for bit)")
+        if not np.isfinite(a):
+            raise AssertionError(f"epoch 2 {key} not finite: {a}")
+    log(f"[entry] epoch 2, resumed B equals uninterrupted A bit for bit: "
+        f"{json.dumps({k: v[1] for k, v in hist_a.items()})}")
     scores = {}
     for name in ("a", "b"):
         wdir = os.path.join(root, f"{name}_weights")
@@ -1449,13 +1534,8 @@ def train_entry_phase(root: str, bare_img_s: float, inception_path: str):
         grid = os.path.join(root, f"{name}_images", "fake_sample_epoch_1.png")
         if not os.path.exists(grid):
             raise AssertionError(f"run {name}: sample grid missing")
-    score_gaps = _score_gaps(scores["b"][1], scores["a"][1])
     log(f"[entry] IS, FID per epoch (24 test images a side, random "
-        f"Inception weights): run A {scores['a']}, run B {scores['b']}; "
-        f"epoch 2 relative gaps B vs A {score_gaps}")
-    if score_gaps[0] > ENTRY_IS_RTOL or score_gaps[1] > ENTRY_FID_RTOL:
-        raise AssertionError(f"epoch 2 IS/FID: run A {scores['a'][1]}, "
-                             f"resumed run B {scores['b'][1]}")
+        f"Inception weights): run A {scores['a']}, run B {scores['b']}")
     grid_px = Image.open(grid).size
     log(f"[entry] files present in both runs; grid {grid_px} px; figure "
         f"{'written' if os.path.exists(os.path.join(root, 'b_images', 'samples_with_text_epoch_1.jpg')) else 'not written'}")
@@ -1502,9 +1582,11 @@ def train_entry_phase(root: str, bare_img_s: float, inception_path: str):
             f"device, steps {step_s:.3f}s device {['%.1f' % (t * 1e3) for t in tr.timers['step'].times]} ms); "
             f"eval + sample dumps {hs['eval']:.3f}s, checkpoints "
             f"{hs['checkpoint']:.3f}s; whole call {wall:.2f}s = "
-            f"{numbers[name]['img_per_s_call']:.2f} img/s; bare step "
-            f"(phase 4) {bare_img_s:.2f} img/s")
+            f"{numbers[name]['img_per_s_call']:.2f} img/s (deterministic "
+            f"cuDNN); bare step (phase 4, default cuDNN) {bare_img_s:.2f} "
+            f"img/s")
     numbers["scores"] = scores
+    numbers["hist_a"] = hist_a
     return tuple(totals), numbers
 
 
@@ -1714,6 +1796,291 @@ def eval_phase(root: str, inception_path: str, bare_img_s: float):
     return counts[:2], numbers
 
 
+DP_LOCAL_BATCH = 12              # phase 7b: two ranks on one card, 12 + 12
+DP_EVAL_PER_RANK = 24            # phase 7b: fakes a rank for IS/FID
+DP_TIMEOUT_S = 420               # each phase-7 child process
+DP_AB_STEPS = 5                  # phase 7a: steps a window, plain and DP
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_entry_child(spec: dict) -> int:
+    """Phase 7a's child: one rank of `train_entry.train(data_parallel=
+    True)` under torch.profiler (device activity); prints one
+    "DP_ENTRY {json}" line with the histories, the launch and collective
+    counters, the trainer's step timers and the NCCL kernels' device
+    time."""
+    from unittest import mock
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, REPO)
+    from gan_codes_tpu_torch import train_entry
+    from gan_codes_tpu_torch.parallel import mesh as pmesh
+    from gan_codes_tpu_torch.train.trainer import Trainer
+
+    made = []
+
+    class Recorded(Trainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    k2, k1, k1b = _counters()
+    k2.launches = k1.launches = k1b.launches = 0  # main path starts
+    pmesh.all_reduce.calls = pmesh.broadcast.calls = 0
+    t = time.perf_counter()
+    with mock.patch.object(train_entry, "Trainer", Recorded), \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        hist = train_entry.train(
+            spec["data"], spec["te"], spec["images"], spec["weights"],
+            image_size=256, batch_size=TRAIN_BATCH, num_epochs=2, seed=SEED,
+            n_channels=32, compute_dtype="float32",
+            inception_weights_path=spec["inception"], device="cuda",
+            data_parallel=True, deterministic=True)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = [k2.launches, k1.launches, k1b.launches]  # main path ends
+    collectives = [pmesh.all_reduce.calls, pmesh.broadcast.calls]
+    nccl = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "nccl" in e.name.lower()]
+    tr = made[-1]
+
+    # the DP step beside the plain step in this process (NCCL, world 1,
+    # a new group: train() closed its own), from one full-width state,
+    # in windows plain, DP, DP, plain, then one profile of each
+    from gan_codes_tpu_torch.train.step import make_train_step
+
+    os.environ["MASTER_PORT"] = str(_free_port())
+    mesh = pmesh.init_mesh("cuda")
+    try:
+        cfg, state, te, plain, batch = _train_setup("float32")
+        steps = {"plain": plain, "dp": make_train_step(cfg, mesh)}
+        rates = {"plain": [], "dp": []}
+        for name in ("plain", "dp", "dp", "plain"):
+            fn = steps[name]
+            fn(state, te, *batch)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(DP_AB_STEPS):
+                fn(state, te, *batch)
+            end.record()
+            end.synchronize()
+            rates[name].append(DP_AB_STEPS * TRAIN_BATCH
+                               / (start.elapsed_time(end) / 1e3))
+        profiles = {}
+        for name, fn in steps.items():
+            res = _profile(lambda: fn(state, te, *batch), 2, by_name=True)
+            profiles[name] = None if res is None else res[0]
+        strides = {name: _grad_stride_mismatch(state, fn, te, batch)
+                   for name, fn in steps.items()}
+    finally:
+        pmesh.close_mesh(mesh)
+    print("DP_ENTRY " + json.dumps({
+        "hist": hist, "counts": counts, "call_s": wall,
+        "all_reduce_calls": collectives[0],
+        "broadcast_calls": collectives[1],
+        "step_device_ms": [x * 1e3 for x in tr.timers["step"].times],
+        "host_s": dict(tr.host_seconds), "nccl_kernels": len(nccl),
+        "nccl_names": sorted({e.name for e in nccl}),
+        "nccl_device_ms": sum(e.time_range.end - e.time_range.start
+                              for e in nccl) / 1e3,
+        "ab_img_per_s": rates, "ab_profiles": profiles,
+        "grad_stride_mismatch": strides}), flush=True)
+    return 0
+
+
+def _grad_stride_mismatch(state, step, te, batch) -> dict:
+    """Over one call of `step`: for each optimizer update (D phase 1, D
+    phase 2, G phase 3), how many of the gradients it is given have
+    strides other than their parameters' (torch's foreach kernels, which
+    the clip and Adam run on, take their one-launch-per-chunk path only
+    when the lists' strides match)."""
+    seen = {"d": [], "g": []}
+    origs = {}
+    for key, opt in (("d", state.d_opt), ("g", state.g_opt)):
+        origs[key] = opt.step
+
+        def wrapped(grads, _opt=opt, _key=key):
+            grads = list(grads)
+            seen[_key].append([sum(p.stride() != g.stride() for p, g in
+                                   zip(_opt.params, grads)), len(grads)])
+            return origs[_key](grads)
+        opt.step = wrapped
+    try:
+        step(state, te, *batch)
+    finally:
+        for key, opt in (("d", state.d_opt), ("g", state.g_opt)):
+            opt.step = origs[key]
+    return seen
+
+
+def _by_name_diff(profiles: dict, top: int = 12) -> dict:
+    """The plain step's kernels less the DP step's, by kernel name: the
+    launches and device ms a step in all, and the `top` names whose launch
+    counts differ most (name, plain launches, DP launches, plain ms, DP
+    ms)."""
+    plain = profiles["plain"]["by_name"]
+    dp = profiles["dp"]["by_name"]
+    rows = [(k, plain.get(k, [0, 0.0]), dp.get(k, [0, 0.0]))
+            for k in set(plain) | set(dp)]
+    rows.sort(key=lambda r: -abs(r[1][0] - r[2][0]))
+    return {"launches": sum(p[0] - d[0] for _, p, d in rows),
+            "ms": sum(p[1] - d[1] for _, p, d in rows),
+            "top": [[k[:120], p[0], d[0], p[1], d[1]]
+                    for k, p, d in rows[:top] if p[0] != d[0]]}
+
+
+def dp_phase(root: str, inception_path: str, entry_numbers: dict,
+             bare_img_s: float):
+    """Phase 7. Returns (K2, K1, K1 bwd launches of 7a's main path, DP
+    numbers)."""
+    import torch
+
+    from gan_codes_tpu_torch.config import GeneratorConfig
+    from gan_codes_tpu_torch.ops.kernels import fused_modconv
+
+    torch.cuda.empty_cache()  # the children share the card
+    numbers = {}
+    # (a) train_entry --dp at world size 1 over NCCL, in a child process
+    t0 = time.perf_counter()
+    spec = {"data": os.path.join(root, "cub"),
+            "te": os.path.join(root, "entry_text_encoder.pth"),
+            "inception": inception_path,
+            "images": os.path.join(root, "dp_images"),
+            "weights": os.path.join(root, "dp_weights")}
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               LOCAL_WORLD_SIZE="1", GROUP_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--dp-entry-child", json.dumps(spec)],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=DP_TIMEOUT_S)
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("DP_ENTRY ")]
+    if r.returncode != 0 or not lines:
+        raise AssertionError(f"train_entry --dp child failed (rc "
+                             f"{r.returncode}):\n{r.stdout[-4000:]}\n"
+                             f"{r.stderr[-4000:]}")
+    child = json.loads(lines[-1][len("DP_ENTRY "):])
+    wall_a = time.perf_counter() - t0
+    hist, hist_a = child["hist"], entry_numbers["hist_a"]
+    gaps = {}
+    for key in ("g_losses", "d_losses", "d_gp_losses", "txtimg_losses"):
+        gaps[key] = [abs(b - a) / max(abs(a), 1e-30)
+                     for a, b in zip(hist_a[key], hist[key])]
+        if len(hist[key]) != 2 or not np.allclose(hist[key], hist_a[key],
+                                                  rtol=1e-3, atol=0.0):
+            raise AssertionError(f"--dp {key} {hist[key]} against run A "
+                                 f"{hist_a[key]}")
+    score_gaps = [_score_gaps((i, f), (ia, fa)) for i, f, ia, fa in zip(
+        hist["is_scores"], hist["fid_scores"], hist_a["is_scores"],
+        hist_a["fid_scores"])]
+    if any(g[0] > ENTRY_IS_RTOL or g[1] > ENTRY_FID_RTOL
+           for g in score_gaps):
+        raise AssertionError(f"--dp IS/FID {hist['is_scores']} "
+                             f"{hist['fid_scores']} against run A "
+                             f"{hist_a['is_scores']} {hist_a['fid_scores']}")
+    shapes = dfblock_shapes(GeneratorConfig())
+    n_k2 = sum(fused_modconv._supported(
+        torch.empty(3, 3, cin, cout, device="meta")) for _, cin, cout in shapes)
+    steps, evals = 2 * (ENTRY_TRAIN // TRAIN_BATCH), 2
+    want = [n_k2 * (steps + evals), (len(shapes) - n_k2) * (steps + evals),
+            len(shapes) * steps]
+    if child["counts"] != want:
+        raise AssertionError(f"--dp launch counters {child['counts']} != "
+                             f"{want}")
+    if child["all_reduce_calls"] != 4 * steps + 1:
+        raise AssertionError(f"--dp all-reduces {child['all_reduce_calls']}"
+                             f" != {4 * steps + 1}")
+    # the child's first step is its process's first (cuDNN picks its
+    # algorithms then); run A's process had run phases 2-4 before
+    step_ms = child["step_device_ms"][1:]
+    a_ms = entry_numbers["A"]["step_device_ms"][1:]
+    numbers["a"] = {
+        "call_s": child["call_s"], "child_wall_s": wall_a,
+        "loss_rel_gaps": gaps, "score_rel_gaps": score_gaps,
+        "counts": child["counts"],
+        "all_reduce_calls": child["all_reduce_calls"],
+        "broadcast_calls": child["broadcast_calls"],
+        "step_device_ms": child["step_device_ms"],
+        "img_per_s_dp_steps": TRAIN_BATCH * len(step_ms) / sum(step_ms) * 1e3,
+        "img_per_s_run_a_steps": TRAIN_BATCH * len(a_ms) / sum(a_ms) * 1e3,
+        "img_per_s_bare_step": bare_img_s,
+        "ab_img_per_s": child["ab_img_per_s"],
+        "ab_profiles": {k: v and {x: y for x, y in v.items()
+                                  if x != "by_name"}
+                        for k, v in child["ab_profiles"].items()},
+        "ab_by_name_diff": (_by_name_diff(child["ab_profiles"])
+                            if all(child["ab_profiles"].values()) else None),
+        "grad_stride_mismatch": child["grad_stride_mismatch"],
+        "nccl_kernels": child["nccl_kernels"],
+        "nccl_names": child["nccl_names"],
+        "nccl_device_ms": child["nccl_device_ms"],
+        "nccl_device_ms_per_step": child["nccl_device_ms"] / steps,
+        "host_s": child["host_s"]}
+    log(f"[dp] (a) train_entry --dp, world 1 over NCCL, 256px batch 24 "
+        f"fp32, 2 epochs: losses and IS/FID against run A {json.dumps(gaps)}"
+        f" {score_gaps}; launches (K2, K1, K1 bwd) {child['counts']}; "
+        f"{child['all_reduce_calls']} all-reduces and "
+        f"{child['broadcast_calls']} broadcasts; step device ms "
+        f"{['%.1f' % x for x in child['step_device_ms']]} (the first "
+        f"cold): after it {numbers['a']['img_per_s_dp_steps']:.2f} img/s "
+        f"(profiler on) against run A's steps after its first "
+        f"{numbers['a']['img_per_s_run_a_steps']:.2f} and the bare step "
+        f"{bare_img_s:.2f}; NCCL kernels {child['nccl_kernels']} "
+        f"({child['nccl_names'][:3]}), {child['nccl_device_ms']:.4f} "
+        f"device ms in all; child process {wall_a:.1f}s")
+    ab = child["ab_img_per_s"]
+    prof = {k: v and {"busy_ms": v["device_busy_ms_per_call"],
+                      "kernels": v["kernels_per_call"],
+                      "idle_share": v["idle_share"],
+                      "nccl_ms": v["ms_per_call"].get("NCCL collectives",
+                                                      0.0),
+                      "copies_ms": v["ms_per_call"].get("copies", 0.0)}
+            for k, v in child["ab_profiles"].items()}
+    log(f"[dp] (a) one process, one full-width fp32 state, windows of "
+        f"{DP_AB_STEPS} steps plain, DP, DP, plain (CUDA events): plain "
+        f"{['%.2f' % x for x in ab['plain']]}, DP (world 1, NCCL) "
+        f"{['%.2f' % x for x in ab['dp']]} img/s; profiler, device ms a "
+        f"step: {json.dumps(prof)}")
+    log(f"[dp] (a) plain less DP kernels a step, by name: "
+        f"{json.dumps(numbers['a']['ab_by_name_diff'])}; gradients with "
+        f"strides other than their parameters' ([mismatched, all] per "
+        f"update): {json.dumps(child['grad_stride_mismatch'])}")
+
+    # (b) two ranks on the one card over gloo: the step and the eval
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "gan_codes_tpu_torch.tools.dp_check",
+         "--device", "cuda:0", "--image-size", "256",
+         "--n-channels", "32", "--local-batch", str(DP_LOCAL_BATCH),
+         "--steps", "1", "--inception", inception_path, "--eval-per-rank",
+         str(DP_EVAL_PER_RANK), "--timeout", str(DP_TIMEOUT_S - 60),
+         "--seed", str(SEED)],
+        cwd=REPO, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+    wall_b = time.perf_counter() - t0
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+    if r.returncode != 0 or not lines:
+        raise AssertionError(f"dp_check failed (rc {r.returncode}):\n"
+                             f"{r.stdout[-4000:]}\n{r.stderr[-4000:]}")
+    report = json.loads(lines[-1])
+    numbers["b"] = dict(report, wall_s=wall_b)
+    log(f"[dp] (b) 2 ranks on one card over gloo, 256px 12 + 12 against "
+        f"one process at 24: {json.dumps(report['steps'])}; IS/FID "
+        f"{json.dumps(report.get('eval'))}; ranks' steps "
+        f"{report['rank_step_s']} s; {wall_b:.1f}s in all")
+    return tuple(want), numbers
+
+
 def main() -> int:
     import torch
 
@@ -1768,21 +2135,29 @@ def main() -> int:
         t0 = time.perf_counter()
         (v_k2, v_k1), eval_numbers = eval_phase(
             os.path.join(root, "eval"), inception_path, bare_img_s)
-    log("[eval] " + json.dumps(eval_numbers))
-    log(f"[eval] phase took {time.perf_counter() - t0:.1f}s")
+        log("[eval] " + json.dumps(eval_numbers))
+        log(f"[eval] phase took {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        (d_k2, d_k1, d_k1b), dp_numbers = dp_phase(
+            root, inception_path, entry_numbers, bare_img_s)
+    log("[dp] " + json.dumps(dp_numbers))
+    log(f"[dp] phase took {time.perf_counter() - t0:.1f}s")
     # launches on the main paths; K3 is on none (as in the JAX package),
     # so its only launches are the kernel checks', which do not count
     launches = {"fused_modconv3x3": {"serve": k2, "train": t_k2,
-                                     "train_entry": e_k2, "eval": v_k2},
+                                     "train_entry": e_k2, "eval": v_k2,
+                                     "dp_entry": d_k2},
                 "fused_double_affine_leaky": {"serve": k1, "train": t_k1,
                                               "train_entry": e_k1,
-                                              "eval": v_k1},
+                                              "eval": v_k1, "dp_entry": d_k1},
                 "fused_double_affine_leaky_bwd": {"serve": 0,
                                                   "train": t_k1b,
                                                   "train_entry": e_k1b,
-                                                  "eval": 0},
+                                                  "eval": 0,
+                                                  "dp_entry": d_k1b},
                 "fused_resblock_g": {"serve": 0, "train": 0,
-                                     "train_entry": 0, "eval": 0}}
+                                     "train_entry": 0, "eval": 0,
+                                     "dp_entry": 0}}
     kernels = []
     for name, s in summary.items():
         by_path = dict(launches[name])
@@ -1816,4 +2191,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-entry-child"]:
+        sys.exit(dp_entry_child(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -31,11 +31,19 @@ class DataLoader:
     def __init__(self, dataset: CUBDataset, batch_size: int,
                  shuffle: bool = True, drop_last: bool = True,
                  seed: int = 123321, num_threads: int = 8,
-                 prefetch: int = 2, shard_id: int = 0, num_shards: int = 1):
-        """`shard_id`/`num_shards`: per-process input sharding for data
-        parallelism (the rank and the world size); each process reads a
+                 prefetch: int = 2, shard_id: int = 0, num_shards: int = 1,
+                 local_rank: int = 0, local_world: int = 1):
+        """`shard_id`/`num_shards`: per-host input sharding for data
+        parallelism (the node and the number of nodes); each host reads a
         disjoint interleaved slice of the epoch permutation, all seeded
-        identically so the global epoch order is consistent."""
+        identically so the global epoch order is consistent, in batches
+        of `batch_size`, the host batch.
+
+        `local_rank`/`local_world`: the process's rows of each host batch,
+        [local_rank * b, (local_rank + 1) * b) with b = batch_size /
+        local_world; the rows' indices and per-item seeds are taken before
+        decoding, so a process decodes its rows only and the processes'
+        rows make up the host batch byte for byte."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -46,6 +54,14 @@ class DataLoader:
             raise ValueError(f"shard_id {shard_id} not in [0, {num_shards})")
         self.shard_id = shard_id
         self.num_shards = num_shards
+        if not (0 <= local_rank < local_world):
+            raise ValueError(f"local_rank {local_rank} not in "
+                             f"[0, {local_world})")
+        if local_world > 1 and (batch_size % local_world or not drop_last):
+            raise ValueError(f"a host batch of {batch_size} does not split "
+                             f"into {local_world} equal full shares")
+        self.local_rank = local_rank
+        self.local_world = local_world
         self._seed = seed
         self._epoch = 0
 
@@ -110,6 +126,11 @@ class DataLoader:
         # drop_last=False, so a single (n_batches, bs) reshape can't work)
         seeds = [rng.integers(0, 2**63 - 1, size=len(b))
                  for b in batches]
+        if self.local_world > 1:  # this process's rows, before decoding
+            b = self.batch_size // self.local_world
+            rows = slice(self.local_rank * b, (self.local_rank + 1) * b)
+            batches = [x[rows] for x in batches]
+            seeds = [x[rows] for x in seeds]
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         sentinel = object()

@@ -1,5 +1,4 @@
-"""Inception Score and FID (the port of `gan_codes_tpu/eval/metrics.py`,
-single process).
+"""Inception Score and FID (the port of `gan_codes_tpu/eval/metrics.py`).
 
 Capability parity with `src/evaluation/metrics.py:7-118`: one resident
 InceptionV3 (`models/inception.py`) instead of the reference's two
@@ -13,9 +12,13 @@ FID's cross term: the exact low-rank Gram path (`sqrtm_trace_lowrank`)
 whenever both sides carry their activations and the smaller side has at
 most 2048 samples (every per-epoch eval), else scipy's `sqrtm` on the host
 (the reference's path) or Newton-Schulz in float64 on the network's device.
-The cross-process moment reduction (`allreduce_moments`,
-`compute_is_fid_multihost`) comes with data parallelism (ROADMAP Queue 1
-item 12); the moment helpers here are its single-process half.
+
+Data parallelism: each rank scores its shard of the eval set, and
+`compute_is_fid_multihost` sums the shards' float64 moments over the ranks
+(`allreduce_moments`, one all-reduce), so the scores cover the union and
+are the same on every rank; only the covariances are known there, and the
+cross term is `sqrtm_trace_psd` (exact at any sample count). The card has float64, so the JAX package's
+hi/lo float32 split for the TPU is not needed.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models import inception as inception_lib
+from ..parallel.mesh import Mesh, all_reduce
 
 INCEPTION_SIZE = 299
 
@@ -122,6 +126,25 @@ def sqrtm_trace_lowrank(acts1: np.ndarray, acts2: np.ndarray) -> float:
     return float(np.sqrt(np.clip(w, 0.0, None)).sum())
 
 
+def sqrtm_trace_psd(sigma1: np.ndarray, sigma2: np.ndarray,
+                    device: str | torch.device = "cpu") -> float:
+    """Exact trace(sqrtm(sigma1 @ sigma2)) of two covariances, in float64
+    on `device`, when only the covariances are known (summed moments).
+
+    With sigma1 = U diag(w) Uᵀ and W = diag(sqrt(w)), the trace is that of
+    sqrtm(A), A = W Uᵀ sigma2 U W, a symmetric PSD matrix: one eigh and one
+    eigvalsh. A covariance of n samples has rank n - 1 at most; sigma1's
+    eigenvalues within rounding of 0 are dropped, so they add no square
+    root of rounding noise."""
+    s1 = torch.as_tensor(sigma1, dtype=torch.float64, device=device)
+    s2 = torch.as_tensor(sigma2, dtype=torch.float64, device=device)
+    w, u = torch.linalg.eigh(s1)
+    keep = w > w.max() * w.shape[0] * torch.finfo(torch.float64).eps
+    uw = u[:, keep] * w[keep].sqrt()
+    ev = torch.linalg.eigvalsh(uw.T @ s2 @ uw)
+    return float(ev.clamp_min(0.0).sqrt().sum())
+
+
 def _frechet_distance(mu1, sigma1, mu2, sigma2, use_scipy: bool = True,
                       device: str | torch.device = "cpu") -> float:
     """FID from two (mu, sigma); without scipy the cross term runs
@@ -204,9 +227,9 @@ def compute_fid(inception_params, real_images, fake_images,
 
 
 # ---------------------------------------------------------------------------
-# Summable statistics (the single-process half of the cross-process eval):
-# IS at splits=1 and FID are functions of per-sample sums, so a shard's
-# moments add up to the statistics of the union.
+# Summable statistics for the cross-process eval: IS at splits=1 and FID
+# are functions of per-sample sums, so a shard's moments add up to the
+# statistics of the union.
 # ---------------------------------------------------------------------------
 
 def activation_moments(inception_params, images,
@@ -256,6 +279,86 @@ def is_from_moments(m: dict) -> float:
     except Exception as e:  # reference failure sentinel (`metrics.py:58-60`)
         print(f"Error in IS calculation: {e}")
         return 1.0
+
+
+def allreduce_moments(mesh: Optional[Mesh], tree: dict) -> dict:
+    """Sum every leaf of a nested dict of float64 moments over the ranks:
+    one all-reduce of the leaves as one float64 tensor on the rank's
+    device. Collective: every rank calls it with the same structure. The
+    identity without a group."""
+    if mesh is None or not mesh.distributed:
+        return tree
+
+    def leaves(t, path=()):
+        for k in sorted(t):
+            if isinstance(t[k], dict):
+                yield from leaves(t[k], path + (k,))
+            else:
+                yield path + (k,), np.asarray(t[k], np.float64)
+
+    items = list(leaves(tree))
+    flat = torch.cat([torch.from_numpy(v).reshape(-1) for _, v in items])
+    host = all_reduce(mesh, flat.to(mesh.device)).cpu().numpy()
+    out: dict = {}
+    offset = 0
+    for path, v in items:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        part = host[offset:offset + v.size].reshape(v.shape)
+        node[path[-1]] = np.float64(part) if v.ndim == 0 else part
+        offset += v.size
+    return out
+
+
+def compute_is_fid_multihost(mesh: Optional[Mesh], inception_params,
+                             fake_images, real_images=None,
+                             real_moments: Optional[dict] = None,
+                             batch_size: int = 8
+                             ) -> Tuple[float, float]:
+    """IS and FID over eval shards spread across the ranks.
+
+    `fake_images` and `real_images` are this rank's shards (either may be
+    empty); the scores cover their union and are the same on every rank.
+    Pass `real_moments` (`activation_moments` of this rank's reals) to
+    reuse a cached real side; every rank must make the same choice. A NaN
+    in any shard travels as a summed flag, so nothing raises between the
+    moments and the collective; the failure sentinels are IS 1.0 and FID
+    inf, as in `compute_is_fid`. The cross term is `sqrtm_trace_psd`,
+    exact at any sample count (so `TrainConfig.eval_sqrtm` does not apply
+    here)."""
+    local = {"fake_is": is_moments(inception_params, fake_images,
+                                   batch_size),
+             "fake_act": activation_moments(inception_params, fake_images,
+                                            batch_size)}
+    if real_moments is None:
+        real_moments = activation_moments(inception_params, real_images,
+                                          batch_size)
+    local["real_act"] = real_moments
+    reduced = allreduce_moments(mesh, local)
+
+    is_score = is_from_moments(reduced["fake_is"])
+    device = inception_lib.params_device(inception_params)
+    try:
+        real, fake = reduced["real_act"], reduced["fake_act"]
+        if fake["nan"] > 0 or real["nan"] > 0:
+            raise FloatingPointError("activations contain NaN values")
+        if fake["n"] < 2 or real["n"] < 2:
+            # stats_from_moments divides by n - 1: raise what maps to the
+            # inf sentinel, not a NaN score
+            raise ValueError("FID needs >=2 samples per side across shards")
+        mu1, sigma1 = stats_from_moments(real)
+        mu2, sigma2 = stats_from_moments(fake)
+        diff = mu1 - mu2
+        fid = float(diff @ diff + np.trace(sigma1) + np.trace(sigma2)
+                    - 2.0 * sqrtm_trace_psd(sigma1, sigma2, device))
+    except FloatingPointError:
+        print("Warning: Activations contain NaN values")
+        fid = float("inf")
+    except Exception as e:
+        print(f"Error in FID calculation: {e}")
+        fid = float("inf")
+    return is_score, fid
 
 
 def compute_is_fid(inception_params, fake_images, real_images,

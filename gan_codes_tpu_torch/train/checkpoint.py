@@ -16,18 +16,27 @@ in the checkpoint directory follows the JAX package's:
   * `config.json`, the run's `GANConfig` (the JAX package reads it too).
 
 Every file is written to a temporary name and renamed into place. Loading
-uses `torch.load(weights_only=True)`. Data-parallel runs (a broadcast of
-the resume decision from rank 0) are not ported yet.
+uses `torch.load(weights_only=True)`.
+
+Data parallelism (`mesh` given): rank 0 writes every file, then all ranks
+wait at a barrier. Rank 0 decides whether there is a checkpoint and
+whether the config matches, and broadcasts its verdict, so every rank
+takes the same branch and a mismatch raises on every rank. `restore`
+loads the directory on every rank, so it must be shared (as Orbax
+requires in JAX), takes the epoch and histories from rank 0, and then
+replicates rank 0's state.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ..parallel.dp import replicate
+from ..parallel.mesh import Mesh, barrier, broadcast, broadcast_json
 from ..utils.jsonio import restore_nonfinite, sanitize_nonfinite
 from .state import TrainState
 
@@ -122,10 +131,14 @@ def load_state_dict(state: TrainState, blob: Dict[str, Any]) -> None:
 class CheckpointManager:
     """Latest + numbered checkpoints + generator-only weights."""
 
-    def __init__(self, directory: str, numbered_every: int = 10):
+    def __init__(self, directory: str, numbered_every: int = 10,
+                 mesh: Optional[Mesh] = None):
         self.directory = os.path.abspath(directory)
         self.numbered_every = numbered_every
-        os.makedirs(self.directory, exist_ok=True)
+        self.mesh = mesh
+        self.primary = mesh is None or mesh.primary
+        if self.primary:
+            os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, name: str) -> str:
         return os.path.join(self.directory, name)
@@ -142,18 +155,21 @@ class CheckpointManager:
     def save(self, epoch: int, state: TrainState,
              histories: Dict[str, List[float]],
              config: Any = None) -> None:
-        blob = state_to_dict(state)
-        self._save("checkpoint", blob)
-        if (epoch + 1) % self.numbered_every == 0:
-            self._save(f"checkpoint_epoch_{epoch}", blob)
-        self.save_generator(epoch, state)
-        # histories.json is the resume commit point (it names the epoch
-        # restore() returns), so it lands only after the state files are
-        # complete: a crash before it leaves the previous epoch's
-        # histories and resume replays the epoch (never skips one).
-        self._write_json("histories.json", {"epoch": epoch, **histories})
-        if config is not None:
-            self.save_config(config)
+        if self.primary:
+            blob = state_to_dict(state)
+            self._save("checkpoint", blob)
+            if (epoch + 1) % self.numbered_every == 0:
+                self._save(f"checkpoint_epoch_{epoch}", blob)
+            self.save_generator(epoch, state)
+            # histories.json is the resume commit point (it names the
+            # epoch restore() returns), so it lands only after the state
+            # files are complete: a crash before it leaves the previous
+            # epoch's histories and resume replays the epoch (never skips
+            # one).
+            self._write_json("histories.json", {"epoch": epoch, **histories})
+            if config is not None:
+                self.save_config(config)
+        barrier(self.mesh)
 
     def save_config(self, config: Any) -> None:
         """Persist the run's GANConfig as config.json (atomic write) so
@@ -176,8 +192,15 @@ class CheckpointManager:
         os.replace(tmp, self._path(name))
 
     def has_checkpoint(self) -> bool:
-        return os.path.exists(self._path("checkpoint")) and \
-            os.path.exists(self._path("histories.json"))
+        """Whether there is a checkpoint to resume; rank 0's view under
+        data parallelism (broadcast)."""
+        local = self.primary and os.path.exists(self._path("checkpoint")) \
+            and os.path.exists(self._path("histories.json"))
+        if self.mesh is None or not self.mesh.distributed:
+            return local
+        flag = torch.tensor([int(local)], dtype=torch.int64,
+                            device=self.mesh.device)
+        return bool(broadcast(self.mesh, flag).item())
 
     def load_config(self):
         """The `GANConfig` this checkpoint was trained with, or None when
@@ -196,13 +219,15 @@ class CheckpointManager:
         when the directory has no config.json."""
         if config is None:
             return
-        saved = self.load_config()
-        if saved is None:
-            return
-        # Round-trip through GANConfig so fields added after the checkpoint
-        # was written take their default instead of reading as "<absent>".
-        lines = config_mismatches(dataclasses.asdict(saved),
-                                  dataclasses.asdict(config))
+        lines = None
+        if self.primary:
+            saved = self.load_config()
+            # Round-trip through GANConfig so fields added after the
+            # checkpoint was written take their default instead of reading
+            # as "<absent>".
+            lines = [] if saved is None else config_mismatches(
+                dataclasses.asdict(saved), dataclasses.asdict(config))
+        lines = broadcast_json(self.mesh, lines)  # rank 0's verdict
         if lines:
             raise ValueError(
                 "Config mismatch between the checkpoint in "
@@ -213,12 +238,18 @@ class CheckpointManager:
     def restore(self, state: TrainState
                 ) -> Tuple[TrainState, int, Dict[str, List[float]]]:
         """Load the latest checkpoint into `state` (in place) and return
-        (state, last completed epoch, histories)."""
+        (state, last completed epoch, histories); under data parallelism
+        every rank loads it, then takes rank 0's state and histories."""
         blob = torch.load(self._path("checkpoint"), map_location="cpu",
                           weights_only=True)
         load_state_dict(state, blob)
-        with open(self._path("histories.json")) as f:
-            hist = restore_nonfinite(json.load(f))
+        hist = None
+        if self.primary:
+            with open(self._path("histories.json")) as f:
+                hist = restore_nonfinite(json.load(f))
+        hist = broadcast_json(self.mesh, hist)
+        if self.mesh is not None:
+            replicate(self.mesh, state)
         epoch = int(hist.pop("epoch"))
         histories = {k: list(hist.get(k, [])) for k in HISTORY_KEYS}
         return state, epoch, histories

@@ -16,6 +16,22 @@ updated in place between the phases; G's graph holds nothing of D's. G's
 backward runs through the kernels' backward: K2's (the conv's input
 gradient, K1 bwd, which also rebuilds the modulation for the conv's weight
 gradient) and K1 bwd, on every DFBlock.
+
+Data parallelism (`mesh` given; `parallel/dp.py`): each rank takes its rows
+of the global batch, and the step equals the single-process step on the
+global batch up to the order of its sums, as JAX's GSPMD step does. Each
+loss is the rank's share of the global loss (`losses.py`), the mismatch
+term pairs the rank's last real image with the next rank's first sentence,
+and each phase's gradients are summed over the ranks in one flat
+collective that also carries the phase's loss terms: the NaN guard then
+reads the global loss, so every rank takes the same branch and draws the
+same fallback. The noise is drawn at the global batch from the replicated
+`state.rng` and each rank takes its rows, so the generator's stream moves
+as on one process. The reduced gradients are the same bits on every rank,
+so clip, Adam and the EMA keep the ranks in lockstep bit for bit.
+`DistributedDataParallel` would do neither: it averages per-rank losses,
+which drops a mismatch pair at every rank boundary, and it does not reduce
+gradients taken with `torch.autograd.grad`, as every gradient here is.
 """
 from __future__ import annotations
 
@@ -25,6 +41,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 
 from ..config import GANConfig
+from ..parallel.mesh import Mesh, all_reduce
 from . import losses
 from .state import TrainState, ema_update
 
@@ -41,7 +58,33 @@ def _grads(out: torch.Tensor, params: Sequence[torch.Tensor],
             for p, g in zip(params, grads)]
 
 
-def make_train_step(cfg: GANConfig) -> Callable[..., Metrics]:
+def _sum_over_ranks(mesh: Mesh, grads: List[torch.Tensor],
+                    *terms: torch.Tensor):
+    """Sum gradients and loss terms over the ranks in one collective (one
+    flat float32 buffer); returns (grads, terms), the terms detached."""
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [t.detach().float().reshape(1) for t in terms])
+    all_reduce(mesh, flat)
+    parts = flat.split([g.numel() for g in grads] + [1] * len(terms))
+    return ([p.view_as(g) for p, g in zip(parts, grads)],
+            [p.reshape(()) for p in parts[len(grads):]])
+
+
+def _next_sentence(mesh: Mesh, sents: torch.Tensor
+                   ) -> Optional[torch.Tensor]:
+    """The next rank's first sentence embed [1, D] (None on the last
+    rank): each rank writes its first row into a zeroed [world, D] buffer,
+    summed over the ranks."""
+    rows = torch.zeros((mesh.world, sents.shape[1]), dtype=sents.dtype,
+                       device=sents.device)
+    rows[mesh.rank] = sents[0]
+    all_reduce(mesh, rows)
+    return rows[mesh.rank + 1:mesh.rank + 2] \
+        if mesh.rank + 1 < mesh.world else None
+
+
+def make_train_step(cfg: GANConfig,
+                    mesh: Optional[Mesh] = None) -> Callable[..., Metrics]:
     """Build `step(state, text_encoder, images, captions, cap_lens,
     noise=None) -> metrics`.
 
@@ -59,7 +102,13 @@ def make_train_step(cfg: GANConfig) -> Callable[..., Metrics]:
     package's draw). `cfg.train.compute_dtype` "bfloat16" runs G and D in
     bf16 with fp32 parameters and optimizer state;
     `cfg.loss.gp_compute_dtype` sets the penalty's D forward. Metrics are
-    float32 scalars on the device, with the JAX package's keys."""
+    float32 scalars on the device, with the JAX package's keys.
+
+    With `mesh` the step is data-parallel: the batch tensors are this
+    rank's rows (every rank the same count), `noise`, when given, its rows
+    of the global noise, and the metrics are the global batch's, the same
+    on every rank. A mesh of one process without a group computes the
+    same forms with no collective."""
     gen_cfg, loss_cfg = cfg.generator, cfg.loss
     cdtype = cfg.train.compute_torch_dtype
     gp_dtype = (torch.bfloat16 if loss_cfg.gp_compute_dtype == "bfloat16"
@@ -71,6 +120,11 @@ def make_train_step(cfg: GANConfig) -> Callable[..., Metrics]:
     k_interval = loss_cfg.gp_interval
     gp_cfg = (loss_cfg if k_interval == 1 else dataclasses.replace(
         loss_cfg, gp_coef=loss_cfg.gp_coef * k_interval))
+
+    def reduce(grads, *terms):
+        if mesh is None:
+            return grads, terms
+        return _sum_over_ranks(mesh, grads, *terms)
 
     def guard(loss, grads, rng):
         """Reference `_check_nan` semantics on a (loss, grads) pair."""
@@ -88,11 +142,16 @@ def make_train_step(cfg: GANConfig) -> Callable[..., Metrics]:
         d_params = list(d.parameters())
         batch = images.shape[0]
 
+        # the global batch under data parallelism, else None (plain means)
+        count = None if mesh is None else batch * mesh.world
         with torch.no_grad():  # frozen text encoder (`model.py:171`)
             sents = text_encoder(captions, cap_lens).float()
         if noise is None:
-            noise = torch.randn((batch, gen_cfg.latent_dim),
+            noise = torch.randn((count or batch, gen_cfg.latent_dim),
                                 generator=state.rng, device=images.device)
+            if mesh is not None:  # this rank's rows of the global draw
+                noise = noise[mesh.rank * batch:(mesh.rank + 1) * batch]
+        next_sent = None if mesh is None else _next_sentence(mesh, sents)
         images_c = images.to(cdtype)
         sents_c = sents.to(cdtype)
 
@@ -101,29 +160,34 @@ def make_train_step(cfg: GANConfig) -> Callable[..., Metrics]:
         fake_detached = fake.detach()
 
         # ---- Phase 1: D hinge (adversarial + mismatch) ----
-        d_loss = losses.d_hinge_loss(d, images_c, fake_detached,
-                                     sents_c).float()
-        d_loss, d_grads = guard(d_loss, _grads(d_loss, d_params), state.rng)
+        d_loss = losses.d_hinge_loss(
+            d, images_c, fake_detached, sents_c, count,
+            None if next_sent is None else next_sent.to(cdtype)).float()
+        d_grads, (d_loss,) = reduce(_grads(d_loss, d_params), d_loss)
+        d_loss, d_grads = guard(d_loss, d_grads, state.rng)
         state.d_opt.step(d_grads)
 
         # ---- Phase 2: MA-GP on the post-phase-1 D (`model.py:200-210`) ----
         gp_active = state.step % k_interval == 0
         if gp_active:
             gp_loss = losses.ma_gradient_penalty(
-                d, images.to(gp_dtype), sents.to(gp_dtype), gp_cfg)
-            gp_loss, gp_grads = guard(gp_loss, _grads(gp_loss, d_params),
-                                      state.rng)
+                d, images.to(gp_dtype), sents.to(gp_dtype), gp_cfg, count)
+            gp_grads, (gp_loss,) = reduce(_grads(gp_loss, d_params), gp_loss)
+            gp_loss, gp_grads = guard(gp_loss, gp_grads, state.rng)
             state.d_opt.step(gp_grads)
         else:
             gp_loss = torch.zeros((), device=images.device)
 
         # ---- Phase 3: G step against the post-phase-2 D ----
         fake_in = fake_detached.requires_grad_(True)
-        g_adv = losses.g_hinge_loss(d, fake_in, sents_c).float()
-        txtimg = losses.damsm_cosine_loss(fake_in.float(), sents).float()
+        g_adv = losses.g_hinge_loss(d, fake_in, sents_c, count).float()
+        txtimg = losses.damsm_cosine_loss(fake_in.float(), sents,
+                                          count).float()
         g_total = g_adv + loss_cfg.damsm_weight * txtimg
         (d_fake,) = torch.autograd.grad(g_total, fake_in)
-        g_grads = _grads(fake, g_params, d_fake.to(fake.dtype))
+        g_grads, (g_total, g_adv, txtimg) = reduce(
+            _grads(fake, g_params, d_fake.to(fake.dtype)),
+            g_total, g_adv, txtimg)
         if loss_cfg.nan_guard:
             # keyed on the loss actually differentiated (`step.py:196-201`)
             g_grads = losses.zero_grads_if_nonfinite(g_total, g_grads)

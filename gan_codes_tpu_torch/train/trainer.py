@@ -1,5 +1,5 @@
 """The training engine: epoch loop, eval, checkpointing, sample dumps (the
-port of `gan_codes_tpu/train/trainer.py`, on one device).
+port of `gan_codes_tpu/train/trainer.py`).
 
 Capability parity with `DeepFusionGAN` (`src/deep_fusion_gan/model.py:
 20-387`): owns G, D and the frozen text encoder, the TTUR Adam optimizers,
@@ -15,6 +15,16 @@ uninterrupted one. `evaluate` computes IS and FID with the Inception
 weights it was given (`eval/metrics.py`; the fakes, the reals and the
 network stay on the device, the features come back), and records the
 reference's failure sentinels, IS 1.0 and FID inf, without them.
+
+Data parallelism (`mesh` given; `parallel/`): every rank starts from rank
+0's state and steps through `make_train_step(cfg, mesh)` on its rows of
+each global batch, so the per-epoch means come from the reduced metrics and
+are the same on every rank. Rank 0 alone writes files (checkpoints, the
+metrics log, sample dumps) and prints. Eval: each rank generates fakes for
+its rows of the test batches, from its rows of eval noise drawn at the
+global batch, and when the world is larger than one and Inception is
+loaded every rank enters `compute_is_fid_multihost`, even with an empty
+shard; the real side is cached as summed-moment inputs.
 
 Where the time goes is kept in `self.timers`, the device time of each step
 and of each host-to-device copy (CUDA events on a card), and in
@@ -34,6 +44,8 @@ import torch
 from ..config import GANConfig
 from ..eval import metrics
 from ..models.inception import inception_to
+from ..parallel.dp import replicate
+from ..parallel.mesh import Mesh
 from ..utils import image_io
 from ..utils.device import serving_device
 from ..utils.profiling import MetricsLogger, StepTimer
@@ -47,33 +59,44 @@ class Trainer:
                  checkpoint_dir: str, image_dir: str,
                  code2word: Optional[Dict[int, str]] = None,
                  inception_params=None, seed: Optional[int] = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 mesh: Optional[Mesh] = None):
         """`text_encoder` maps (captions, cap_lens) to sentence embeddings
         and is frozen; it and `inception_params` (`models/inception.py`;
         None: IS/FID record their sentinels) are moved to `device` (CUDA
-        unless the caller passes "cpu"; raises without a card)."""
-        self.device = serving_device(device)
+        unless the caller passes "cpu"; raises without a card), or under
+        data parallelism to `mesh.device`."""
+        self.mesh = mesh
+        self.primary = mesh is None or mesh.primary
+        self.device = mesh.device if mesh is not None \
+            else serving_device(device)
         self.cfg = cfg
         self.image_dir = image_dir
         self.code2word = code2word  # wired from the dataset (`train.py:31`)
-        os.makedirs(image_dir, exist_ok=True)
+        if self.primary:
+            os.makedirs(image_dir, exist_ok=True)
 
         self.ckpt = CheckpointManager(checkpoint_dir,
-                                      cfg.train.numbered_checkpoint_every)
+                                      cfg.train.numbered_checkpoint_every,
+                                      mesh=mesh)
+        # rank 0 writes the log; the other ranks have none
         self.metrics_log = MetricsLogger(
-            os.path.join(checkpoint_dir, "metrics_log.jsonl"))
+            os.path.join(checkpoint_dir, "metrics_log.jsonl")) \
+            if self.primary else None
 
         seed = cfg.train.seed if seed is None else seed
         self.state: TrainState = create_train_state(cfg, seed,
                                                     device=self.device)
         self.text_encoder = text_encoder.to(self.device).eval()
         self.text_encoder.requires_grad_(False)
+        if mesh is not None:
+            replicate(mesh, self.state, self.text_encoder)
         self.inception_params = None if inception_params is None \
             else inception_to(inception_params, self.device)
         self._use_scipy_sqrtm = cfg.train.eval_sqrtm != "newton_schulz"
-        # (test_loader, real-side stats) for FID, see _cached_real_side()
+        # (test_loader, multihost, real side) for FID, _cached_real_side()
         self._real_fid_stats = None
-        self._step_fn = make_train_step(cfg)
+        self._step_fn = make_train_step(cfg, mesh)
         self._eval_seed = seed + 1
         self._eval_rng = self._epoch_generator(0)
         # per-step scalar series of the last train_epoch (only retained when
@@ -86,7 +109,8 @@ class Trainer:
 
     def close(self) -> None:
         """Release the JSONL log file handle (idempotent)."""
-        self.metrics_log.close()
+        if self.metrics_log is not None:
+            self.metrics_log.close()
 
     # ------------------------------------------------------------------
 
@@ -168,7 +192,7 @@ class Trainer:
         their epoch row."""
         series = self._last_step_series
         k = self.cfg.train.log_every_steps
-        if not series or k <= 0:
+        if not series or k <= 0 or self.metrics_log is None:
             return
         n = len(next(iter(series.values())))
         first = int(self.state.step) - n  # global step idx before this epoch
@@ -184,14 +208,18 @@ class Trainer:
     def generate(self, captions, cap_lens, use_ema: bool = False,
                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Encode captions + run G in float32 (the `sample.py:13-18`
-        path); noise from the epoch's eval generator when not given."""
+        path); noise from the epoch's eval generator when not given (under
+        data parallelism drawn at the global batch, this rank's rows)."""
         caps = torch.as_tensor(np.asarray(captions)).to(self.device)
         lens = torch.as_tensor(np.asarray(cap_lens))
         sents = self.text_encoder(caps, lens).float()
         if noise is None:
-            noise = torch.randn((sents.shape[0],
-                                 self.cfg.generator.latent_dim),
-                                generator=self._eval_rng, device=self.device)
+            b = sents.shape[0]
+            world, rank = (1, 0) if self.mesh is None \
+                else (self.mesh.world, self.mesh.rank)
+            noise = torch.randn((b * world, self.cfg.generator.latent_dim),
+                                generator=self._eval_rng,
+                                device=self.device)[rank * b:(rank + 1) * b]
         g = self.state.g_ema if use_ema else self.state.generator
         return g(noise.to(self.device, torch.float32), sents)
 
@@ -204,7 +232,9 @@ class Trainer:
         the scores are the reference's failure sentinels (`src/evaluation/
         metrics.py:58-60,113-118`), IS 1.0 and FID inf (0.0 would read as
         a perfect FID). Returns (IS, FID, last fake batch on the host, its
-        captions, its lengths)."""
+        captions, its lengths). Under data parallelism with a world larger
+        than one and Inception weights, the scores cover every rank's
+        shard (a collective every rank enters, even with no batch)."""
         reals, fakes = [], []
         last = None
         for i, batch in enumerate(test_loader):
@@ -216,27 +246,46 @@ class Trainer:
                 reals.append(self._device_batch(batch)[0])
                 fakes.append(fake)
             last = (fake, batch["captions"], batch["cap_lens"])
-        if last is None:
+        multihost = (self.inception_params is not None
+                     and self.mesh is not None and self.mesh.world > 1)
+        if last is None and not multihost:
             return 1.0, float("inf"), None, None, None
         is_score, fid_score = 1.0, float("inf")
         if self.inception_params is not None:
-            real_all = torch.cat(reals)
-            is_score, fid_score = metrics.compute_is_fid(
-                self.inception_params, torch.cat(fakes), real_all,
-                real_stats=self._cached_real_side(test_loader, real_all),
-                use_scipy_sqrtm=self._use_scipy_sqrtm)
-            print(f"Computed IS: {is_score:.4f}, FID: {fid_score:.4f}")
+            s = self.cfg.generator.image_size
+            empty = torch.zeros((0, s, s, 3), device=self.device)
+            real_all = torch.cat(reals) if reals else empty
+            fake_all = torch.cat(fakes) if fakes else empty
+            real_side = self._cached_real_side(test_loader, real_all,
+                                               multihost)
+            if multihost:
+                is_score, fid_score = metrics.compute_is_fid_multihost(
+                    self.mesh, self.inception_params, fake_all, real_all,
+                    real_moments=real_side)
+            else:
+                is_score, fid_score = metrics.compute_is_fid(
+                    self.inception_params, fake_all, real_all,
+                    real_stats=real_side,
+                    use_scipy_sqrtm=self._use_scipy_sqrtm)
+            if self.primary:
+                print(f"Computed IS: {is_score:.4f}, FID: {fid_score:.4f}")
+        if last is None:
+            return is_score, fid_score, None, None, None
         fake, captions, cap_lens = last
         return is_score, fid_score, fake.float().cpu().numpy(), captions, \
             cap_lens
 
-    def _cached_real_side(self, test_loader, real_all: torch.Tensor):
-        """The real side's (mu, sigma, acts) for FID, computed once per
-        loader when its images are the same every epoch: unshuffled and
-        un-augmented (augmentation redraws per-item seeds each epoch).
-        Keyed on the loader object, so another test loader does not reuse
-        this one's stats. None when caching does not apply (compute_fid
-        then computes the real side itself)."""
+    def _cached_real_side(self, test_loader, real_all: torch.Tensor,
+                          multihost: bool = False):
+        """The real side for FID, computed once per loader when its images
+        are the same every epoch: unshuffled and un-augmented
+        (augmentation redraws per-item seeds each epoch): (mu, sigma,
+        acts) on one process, this rank's summable moments under
+        `multihost` (which never raise: a NaN travels as their flag).
+        Keyed on the loader object and the mode, so another test loader
+        does not reuse this one's, nor one mode the other's. None when
+        caching does not apply (the FID path then computes the real side
+        itself)."""
         deterministic = (
             getattr(test_loader, "shuffle", True) is False
             and getattr(getattr(test_loader, "dataset", None),
@@ -244,24 +293,32 @@ class Trainer:
         if not deterministic:
             return None
         cached = self._real_fid_stats
-        if cached is None or cached[0] is not test_loader:
-            try:
-                # the activations ride along, so compute_fid takes its
-                # exact low-rank cross term every epoch
-                payload = metrics.activation_stats(
-                    self.inception_params, real_all, return_acts=True)
-            except FloatingPointError:
-                # a deterministic loader gives the same NaN next epoch:
-                # cache the miss; compute_fid trips its own inf sentinel
-                payload = None
-            self._real_fid_stats = (test_loader, payload)
-        return self._real_fid_stats[1]
+        if (cached is None or cached[0] is not test_loader
+                or cached[1] != multihost):
+            if multihost:
+                payload = metrics.activation_moments(self.inception_params,
+                                                     real_all)
+            else:
+                try:
+                    # the activations ride along, so compute_fid takes its
+                    # exact low-rank cross term every epoch
+                    payload = metrics.activation_stats(
+                        self.inception_params, real_all, return_acts=True)
+                except FloatingPointError:
+                    # a deterministic loader gives the same NaN next
+                    # epoch: cache the miss; compute_fid trips its own inf
+                    # sentinel
+                    payload = None
+            self._real_fid_stats = (test_loader, multihost, payload)
+        return self._real_fid_stats[2]
 
     def _save_samples(self, fake, captions, cap_lens, epoch: int) -> None:
         """Per-epoch image dumps (`model.py:329-387`): the PNG grid, then
         the prompt-titled figure. Each has its own guard, so a failing
         figure (matplotlib missing, say) still leaves the grid; neither
-        stops training."""
+        stops training. Rank 0 alone writes them."""
+        if not self.primary:
+            return
         fake_np = np.asarray(fake)
         try:
             image_io.save_image_grid(
@@ -293,9 +350,10 @@ class Trainer:
             self.ckpt.verify_config(self.cfg)  # loud fail on semantic drift
             self.state, last_epoch, histories = self.ckpt.restore(self.state)
             start_epoch = last_epoch + 1
-            print(f"Resuming from epoch {start_epoch}")
+            if self.primary:
+                print(f"Resuming from epoch {start_epoch}")
             # restored-metric print parity (`model.py:127-128`)
-            if histories.get("fid_scores"):
+            if self.primary and histories.get("fid_scores"):
                 print(f"Last checkpoint FID: "
                       f"{histories['fid_scores'][-1]:.4f}, "
                       f"IS: {histories['is_scores'][-1]:.4f}")
@@ -303,7 +361,8 @@ class Trainer:
         # Epochs >= start_epoch are about to be (re)played: drop their stale
         # rows so the JSONL keeps one row per epoch. Unconditional: a crash
         # before the first checkpoint restarts at 0 yet may have logged.
-        self.metrics_log.truncate_from(start_epoch)
+        if self.metrics_log is not None:
+            self.metrics_log.truncate_from(start_epoch)
 
         for epoch in range(start_epoch, num_epochs):
             t0 = time.time()
@@ -359,6 +418,8 @@ class Trainer:
 
             dt = time.time() - t0
             self._flush_step_rows(epoch)
+            if not self.primary:
+                continue
             self.metrics_log.log(
                 int(self.state.step), epoch=epoch, epoch_seconds=dt,
                 g_loss=histories["g_losses"][-1],

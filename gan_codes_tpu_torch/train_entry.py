@@ -12,11 +12,28 @@ per-epoch metric table. Paths and hyperparameters come from flags:
 It runs on CUDA unless `--device cpu` is given, and raises without a
 card. `--inception` names a torchvision InceptionV3 `state_dict` file for
 the per-epoch IS/FID; without it they record the sentinels IS 1.0 / FID
-inf. Not ported yet: data parallelism (`--dp`, `--multihost`; ROADMAP
-Queue 1 item 12). Not ported: the JAX package's TPU dispatch knobs,
-which are exact math and have no meaning here (`--steps-per-dispatch`,
+inf.
+
+Data parallelism: one process per card, started by `torchrun`:
+
+    torchrun --nproc-per-node 8 -m gan_codes_tpu_torch.train_entry --dp ...
+
+`--dp` on one node takes `--batch-size` as the global batch; `--multihost`
+(which implies `--dp`) takes it as the batch of one node, so the global
+batch is batch_size x nodes. Each process takes batch_size /
+LOCAL_WORLD_SIZE rows of its node's batch, on the card LOCAL_RANK (NCCL;
+gloo with `--device cpu`). The checkpoint directory must be one every
+node sees. `--dp` outside torchrun is a world of one process.
+`--deterministic` runs cuDNN on its deterministic algorithms, so a run
+repeats bit for bit on the card and a resumed run equals its
+uninterrupted twin (the default algorithms add in an order that varies
+from run to run, which a few Adam steps can grow from the last bit into
+percents of a loss); the step is slower for it (`PERF.md` §5).
+`--mesh-layout` and `--mesh-slices` are parsed and ignored: NCCL picks its
+own rings. Not ported: the JAX package's other TPU dispatch knobs, which
+are exact math and have no meaning here (`--steps-per-dispatch`,
 `--device-prefetch`, `--compile-cache`, `--xla-vmem-kib`, the lane and
-image padding, the mesh layouts).
+image padding).
 """
 from __future__ import annotations
 
@@ -32,6 +49,8 @@ from .data.loader import DataLoader
 from .models.inception import load_torch_inception
 from .models.text_encoder import RNNEncoder
 from .models.torch_import import load_text_encoder
+from .parallel.dp import loader_shard
+from .parallel.mesh import close_mesh, init_mesh
 from .train.trainer import Trainer
 from .utils.device import serving_device
 from .utils.seeding import fix_seed
@@ -48,69 +67,93 @@ def train(data_path: str, encoder_weights_path: Optional[str],
           gp_interval: int = 1, ckpt_every: int = 1, n_channels: int = 32,
           eval_augment: bool = False, log_every_steps: int = 0,
           eval_every: int = 1, eval_sqrtm: str = "scipy",
-          device: str | torch.device = "cuda"):
+          device: str | torch.device = "cuda",
+          data_parallel: bool = False, multihost: bool = False,
+          deterministic: bool = False):
     """Train (or resume) a DF-GAN on a CUB-format directory; returns the
-    metric histories."""
-    dev = serving_device(device)
-    fix_seed(seed, device=dev)
-
-    os.makedirs(image_save_path, exist_ok=True)
-    os.makedirs(gen_path_save, exist_ok=True)
-
-    data_cfg = DataConfig(data_dir=data_path, image_size=image_size)
-    train_ds = CUBDataset(data_cfg, "train")
-    # The reference applies RandomCrop/Flip to the TEST loader too
-    # (`src/utils.py:13-24`); deterministic eval is the default here,
-    # --eval-augment reproduces the reference protocol.
-    test_ds = CUBDataset(data_cfg, "test", augment=eval_augment)
-    print(f"Test set size: {len(test_ds)} images")
-
-    cfg = GANConfig.for_image_size(
-        image_size, n_channels=n_channels, vocab_size=train_ds.n_words,
-        loss_overrides={"damsm_weight": damsm_weight,
-                        "gp_compute_dtype": gp_compute_dtype,
-                        "gp_interval": gp_interval},
-        batch_size=batch_size, num_epochs=num_epochs, seed=seed,
-        compute_dtype=compute_dtype, eval_use_ema=eval_use_ema,
-        checkpoint_every_epochs=ckpt_every, log_every_steps=log_every_steps,
-        eval_every_epochs=eval_every, eval_sqrtm=eval_sqrtm)
-
-    train_loader = DataLoader(train_ds, batch_size, seed=seed)
-    test_loader = DataLoader(test_ds, batch_size, shuffle=False, seed=seed)
-
-    if encoder_weights_path and os.path.exists(encoder_weights_path):
-        text_encoder, _ = load_text_encoder(encoder_weights_path,
-                                            cfg.text_encoder)
-    else:
-        print("Warning: no pretrained text encoder; using random init")
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
-            text_encoder = RNNEncoder(cfg.text_encoder)
-    inception_params = None
-    if inception_weights_path and os.path.exists(inception_weights_path):
-        inception_params = load_torch_inception(inception_weights_path)
-    else:
-        print("Warning: no Inception weights; IS/FID disabled")
-
-    trainer = Trainer(cfg, text_encoder, gen_path_save, image_save_path,
-                      code2word=train_ds.code2word,
-                      inception_params=inception_params, seed=seed,
-                      device=dev)
+    metric histories. `data_parallel` / `multihost` / `deterministic`: the
+    module docstring's `--dp` / `--multihost` / `--deterministic` (cuDNN's
+    flag is set for the call and restored after it)."""
+    cudnn_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = cudnn_deterministic or deterministic
+    mesh = init_mesh(device) if data_parallel or multihost else None
     try:
-        histories = trainer.fit(train_loader, test_loader,
-                                num_epochs=num_epochs, auto_resume=True)
-    finally:
-        trainer.close()
+        dev = mesh.device if mesh is not None else serving_device(device)
+        primary = mesh is None or mesh.primary
+        shard = {}
+        if mesh is not None:
+            if mesh.nodes > 1 and not multihost:
+                raise ValueError(f"--dp over {mesh.nodes} nodes needs "
+                                 "--multihost (--batch-size is then a node's "
+                                 "batch)")
+            shard = loader_shard(mesh)
+        fix_seed(seed, device=dev)
 
-    for epoch in range(len(histories["g_losses"])):
-        print(f"Epoch {epoch + 1}: "
-              f"G Loss: {histories['g_losses'][epoch]:.4f}, "
-              f"D Loss: {histories['d_losses'][epoch]:.4f}, "
-              f"D GP Loss: {histories['d_gp_losses'][epoch]:.4f}, "
-              f"Text-Image Loss: {histories['txtimg_losses'][epoch]:.4f}, "
-              f"IS: {histories['is_scores'][epoch]:.4f}, "
-              f"FID: {histories['fid_scores'][epoch]:.4f}")
-    return histories
+        if primary:
+            os.makedirs(image_save_path, exist_ok=True)
+            os.makedirs(gen_path_save, exist_ok=True)
+
+        data_cfg = DataConfig(data_dir=data_path, image_size=image_size)
+        train_ds = CUBDataset(data_cfg, "train")
+        # The reference applies RandomCrop/Flip to the TEST loader too
+        # (`src/utils.py:13-24`); deterministic eval is the default here,
+        # --eval-augment reproduces the reference protocol.
+        test_ds = CUBDataset(data_cfg, "test", augment=eval_augment)
+        if primary:
+            print(f"Test set size: {len(test_ds)} images")
+
+        cfg = GANConfig.for_image_size(
+            image_size, n_channels=n_channels, vocab_size=train_ds.n_words,
+            loss_overrides={"damsm_weight": damsm_weight,
+                            "gp_compute_dtype": gp_compute_dtype,
+                            "gp_interval": gp_interval},
+            batch_size=batch_size, num_epochs=num_epochs, seed=seed,
+            compute_dtype=compute_dtype, eval_use_ema=eval_use_ema,
+            checkpoint_every_epochs=ckpt_every,
+            log_every_steps=log_every_steps, eval_every_epochs=eval_every,
+            eval_sqrtm=eval_sqrtm)
+
+        train_loader = DataLoader(train_ds, batch_size, seed=seed, **shard)
+        test_loader = DataLoader(test_ds, batch_size, shuffle=False, seed=seed,
+                                 **shard)
+
+        if encoder_weights_path and os.path.exists(encoder_weights_path):
+            text_encoder, _ = load_text_encoder(encoder_weights_path,
+                                                cfg.text_encoder)
+        else:
+            if primary:
+                print("Warning: no pretrained text encoder; using random init")
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(seed)
+                text_encoder = RNNEncoder(cfg.text_encoder)
+        inception_params = None
+        if inception_weights_path and os.path.exists(inception_weights_path):
+            inception_params = load_torch_inception(inception_weights_path)
+        elif primary:
+            print("Warning: no Inception weights; IS/FID disabled")
+
+        trainer = Trainer(cfg, text_encoder, gen_path_save, image_save_path,
+                          code2word=train_ds.code2word,
+                          inception_params=inception_params, seed=seed,
+                          device=dev, mesh=mesh)
+        try:
+            histories = trainer.fit(train_loader, test_loader,
+                                    num_epochs=num_epochs, auto_resume=True)
+        finally:
+            trainer.close()
+
+        for epoch in range(len(histories["g_losses"]) if primary else 0):
+            print(f"Epoch {epoch + 1}: "
+                  f"G Loss: {histories['g_losses'][epoch]:.4f}, "
+                  f"D Loss: {histories['d_losses'][epoch]:.4f}, "
+                  f"D GP Loss: {histories['d_gp_losses'][epoch]:.4f}, "
+                  f"Text-Image Loss: {histories['txtimg_losses'][epoch]:.4f}, "
+                  f"IS: {histories['is_scores'][epoch]:.4f}, "
+                  f"FID: {histories['fid_scores'][epoch]:.4f}")
+        return histories
+    finally:
+        close_mesh(mesh)
+        torch.backends.cudnn.deterministic = cudnn_deterministic
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -169,6 +212,21 @@ def main(argv: Optional[Sequence[str]] = None):
                         "no extra host syncs)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--dp", action="store_true",
+                   help="data-parallel over the processes torchrun starts, "
+                        "one per card; --batch-size is the global batch")
+    p.add_argument("--multihost", action="store_true",
+                   help="data-parallel over several nodes (implies --dp); "
+                        "--batch-size is one node's batch")
+    p.add_argument("--deterministic", action="store_true",
+                   help="cuDNN's deterministic algorithms: runs repeat bit "
+                        "for bit on the card (a slower step)")
+    p.add_argument("--mesh-layout", default="flat",
+                   choices=["flat", "hybrid"],
+                   help="the JAX package's TPU mesh layout; ignored (NCCL "
+                        "picks its own rings)")
+    p.add_argument("--mesh-slices", type=int, default=0,
+                   help="the JAX package's virtual slice count; ignored")
     a = p.parse_args(argv)
     return train(a.data, a.text_encoder, a.images, a.weights, a.image_size,
                  a.batch_size, a.epochs, a.seed, a.inception, a.dtype,
@@ -177,7 +235,9 @@ def main(argv: Optional[Sequence[str]] = None):
                  ckpt_every=a.ckpt_every, n_channels=a.n_channels,
                  eval_augment=a.eval_augment,
                  log_every_steps=a.log_every_steps, eval_every=a.eval_every,
-                 eval_sqrtm=a.eval_sqrtm, device=a.device)
+                 eval_sqrtm=a.eval_sqrtm, device=a.device,
+                 data_parallel=a.dp, multihost=a.multihost,
+                 deterministic=a.deterministic)
 
 
 if __name__ == "__main__":

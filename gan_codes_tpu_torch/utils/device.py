@@ -25,3 +25,17 @@ def serving_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def local_device(device: str | torch.device, local_rank: int
+                 ) -> torch.device:
+    """The device of one data-parallel process: `serving_device(device)`,
+    and on CUDA the card `local_rank` of its node, made the current card
+    (the kernels launch on the current card's stream) unless `device`
+    names its card itself."""
+    dev = serving_device(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", local_rank)
+        torch.cuda.set_device(dev)
+    return dev

@@ -198,6 +198,25 @@ class TestMetricMath:
             jm._frechet_distance(mu1, s1, mu2, s2, use_scipy=True),
             rtol=1e-6)
 
+    @pytest.mark.parametrize("n", [10, 200])
+    def test_sqrtm_trace_psd_is_exact_at_any_rank(self, n):
+        """The cross term of the moment-reduced FID from two 64-dim
+        covariances of n samples each, below the dimension (rank n - 1)
+        and above it (full rank), against the JAX package's Gram-trick
+        trace of the same activations (exact at any n) and, at full rank,
+        scipy's sqrtm: rtol 1e-6."""
+        rng = np.random.default_rng(n)
+        acts = rng.standard_normal((2, n, 64)) / 3.0
+        acts -= acts.mean(axis=1, keepdims=True)
+        acts /= np.sqrt(n - 1)
+        s1, s2 = acts[0].T @ acts[0], acts[1].T @ acts[1]
+        got = pm.sqrtm_trace_psd(s1, s2)
+        np.testing.assert_allclose(
+            got, jm.sqrtm_trace_lowrank(acts[0], acts[1]), rtol=1e-6)
+        if n > 64:
+            np.testing.assert_allclose(
+                got, np.trace(linalg.sqrtm(s1 @ s2)).real, rtol=1e-6)
+
     def test_newton_schulz_matches_jax_x64(self):
         """float64 Newton-Schulz (50 iterations) against JAX's under
         enable_x64, and against scipy: rtol 1e-6; the Fréchet distance on

@@ -288,6 +288,40 @@ class TestTrainEntry:
         with open(tmp_path / "w" / "config.json") as f:
             assert json.load(f)["train"]["eval_sqrtm"] == "newton_schulz"
 
+    def test_deterministic_sets_cudnn_for_the_call(self, cub, tmp_path,
+                                                   monkeypatch):
+        """`--deterministic` turns on cuDNN's deterministic algorithms for
+        the call's training, and the flag is restored after it, also when
+        the training raises."""
+        seen = []
+
+        class Stub:
+            def __init__(self, *a, **k):
+                pass
+
+            def fit(self, *a, **k):
+                seen.append(torch.backends.cudnn.deterministic)
+                if len(seen) == 3:
+                    raise RuntimeError("stop")
+                return {k: [] for k in ("g_losses", "d_losses")}
+
+            def close(self):
+                pass
+
+        monkeypatch.setattr(train_entry, "Trainer", Stub)
+        argv = ["--data", cub, "--device", "cpu", "--image-size", "32",
+                "--batch-size", "4", "--epochs", "1", "--n-channels", "8",
+                "--weights", str(tmp_path / "w"), "--images",
+                str(tmp_path / "i")]
+        assert not torch.backends.cudnn.deterministic
+        train_entry.main(argv)
+        train_entry.main(argv + ["--deterministic"])
+        assert not torch.backends.cudnn.deterministic
+        with pytest.raises(RuntimeError, match="stop"):
+            train_entry.main(argv + ["--deterministic"])
+        assert seen == [False, True, True]
+        assert not torch.backends.cudnn.deterministic
+
 
 class _Loader(list):
     """A test loader: its batches, `shuffle`, and `dataset.augment`."""
