@@ -47,6 +47,27 @@ Phases (any failed check raises, so the run exits non-zero):
    by kernel group (torch.profiler) and Sampler throughput at batch 16 and
    64 in float32 and bfloat16, each over THROUGHPUT_WINDOWS windows of
    several seconds.
+3b. Serving, the rest (phase 3's weights dir and fp32 sampler, batch 16,
+   TF32 off): writes seeded `gen_2.pth`, `gen_ema_1.pth`, `gen_ema_2.pth`
+   (to a temporary name, then renamed, as the trainer writes). (a)
+   `build_sampler(use_ema=True)` serves `gen_ema_2.pth`: a batch with
+   explicit noise equals a sampler built on that file bit for bit. (b)
+   `POST /reload` while a client thread sends one-prompt requests (every
+   one must answer 200): `{}` moves to epoch 2, `{"epoch": 1}` pins epoch
+   1; after each, a batch equals a sampler on that epoch's file bit for
+   bit, /healthz shows the epoch and `pinned`, /metrics `reloads_total`;
+   prints each reload's wall ms. (c) `--watch` (WATCH_S): a new
+   `gen_3.pth` is served within 10 s, then a pin on epoch 3 holds against
+   a newer `gen_4.pth` for 1 s. (d) BURST one-prompt requests at once,
+   coalesced (`--coalesce-ms` COALESCE_S) and not: all 200, at most 4
+   coalesced dispatches, K2 (K1) rising by exactly its share of 14 a
+   dispatch; prints each burst's wall seconds and latency percentiles.
+   (e) Data-parallel serving: `Sampler(devices=[cuda:0, cuda:0])` and
+   the CLI's `--dp` (every card, [cuda:0] here) against the plain sampler
+   with the same seed over 20 rows (2 batches): allclose(1e-4, 1e-4), K2
+   rising by 14 per replica per batch; img/s at batch 16 and 64 in turns
+   (plain, dp1, dp2, dp2, dp1, plain); `serve.main(data_parallel=True)`
+   end to end.
 4. Train: builds seeded full-width train states (G 256px n_channels 32,
    D n_channels 32, every block gamma != 0) with `create_train_state`, a
    seeded text encoder and a seeded batch of TRAIN_BATCH images in [-1, 1]
@@ -125,7 +146,21 @@ Phases (any failed check raises, so the run exits non-zero):
    moment-reduced IS/FID over 2 x 24 fakes against `compute_is_fid` on
    the 48 (IS - 1 within 1e-2, FID within 1e-5, relative). Prints its
    wall time.
-8. Prints one {"kernels": [...]} line, the nvidia-smi line, and, last,
+8. Interop (`models/torch_import.py`): a full-width fp32 state after 2
+   train steps on a seeded batch, saved as the reference's `checkpoint.pt`
+   (its state_dicts in the reference's key order, each block's gamma
+   last; both Adam states keyed by that order, with no entry for one D
+   parameter; numpy-free histories of epoch 0), imported by `python -m
+   gan_codes_tpu_torch.models.torch_import --ckpt` in a process of its
+   own. Holds the imported `checkpoint` against the source bit for bit
+   (G, D, the EMA as G, every exp_avg and exp_avg_sq by name, zeros for
+   the parameter without an entry, each step, the step 2). Then
+   `train_entry.train` on phase 5's data resumes it for one more epoch
+   ("Resuming from epoch 1", finite losses, launch counters 14 K2, 0 K1
+   and 14 K1 bwd a step plus 14 K2 for the eval batch), `--export` writes
+   its `gen_1.pth` back (equal to the weights dir's bit for bit) and
+   `build_sampler` serves one request from the export over HTTP.
+9. Prints one {"kernels": [...]} line, the nvidia-smi line, and, last,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -194,7 +229,11 @@ H100_TF32_TENSOR_FLOPS = 495e12  # dense tensor cores; K2's fp32 runs
 #   equals the first bit for bit (no atomics). Its backward (fp32) against
 #   the plain composition's autograd: max|err| <= 1e-3 * max|ref| per input.
 #   The served image (phase 3, fp32) passes 14 DFBlocks, each reordered:
-#   allclose(1e-3, 1e-3).
+#   allclose(1e-3, 1e-3). Phase 3b: the same weights, tokens and noise
+#   through the same kernels give the same batch bit for bit (--ema, after
+#   each reload); a data-parallel replica computes a block of 8 rows where
+#   the plain sampler computes 16, and cuDNN and cuBLAS may pick other
+#   algorithms for 8: allclose(1e-4, 1e-4).
 #   Train (phase 4, fp32), kernels against the plain versions from one
 #   state: the phase-3 G gradients against one D; in one whole step (D
 #   learning) its G gradients and its phase-1 D gradients; the phase-3 G
@@ -726,6 +765,32 @@ def check_resblock(gcfg):
     return s, fr.fused_resblock_g.launches - before
 
 
+def _gammas_away_from_0(g, seed: int) -> None:
+    """Every block gamma of `g` drawn in [0.25, 0.75], away from the 0
+    init."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in g.named_parameters():
+            if name.endswith(".gamma"):
+                p.copy_(torch.rand(1, generator=gen) * 0.5 + 0.25)
+
+
+def _seeded_generator(seed: int):
+    """A seeded random full-width generator, block gammas away from 0."""
+    import torch
+
+    from gan_codes_tpu_torch.config import GeneratorConfig
+    from gan_codes_tpu_torch.models.generator import Generator
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        g = Generator(GeneratorConfig())
+    _gammas_away_from_0(g, seed)
+    return g
+
+
 def write_weights(root: str) -> None:
     """Seeded random full-width reference-format weights + vocab."""
     import torch
@@ -738,11 +803,7 @@ def write_weights(root: str) -> None:
         torch.manual_seed(SEED)
         g = Generator(GeneratorConfig())
         te = RNNEncoder(TextEncoderConfig())
-    gen = torch.Generator().manual_seed(SEED)
-    with torch.no_grad():
-        for name, p in g.named_parameters():
-            if name.endswith(".gamma"):  # away from the 0 init
-                p.copy_(torch.rand(1, generator=gen) * 0.5 + 0.25)
+    _gammas_away_from_0(g, SEED)
     torch.save(g.state_dict(), os.path.join(root, "weights", "gen_1.pth"))
     torch.save(te.state_dict(), os.path.join(root, "text_encoder.pth"))
     words = ["<end>", "<unk>", "a", "this", "bird", "has", "red", "blue",
@@ -767,8 +828,8 @@ def write_inception(path: str) -> None:
         torch.Generator().manual_seed(SEED)), path)
 
 
-def post(url: str, payload: dict):
-    req = urllib.request.Request(url + "/generate",
+def post(url: str, payload: dict, path: str = "/generate"):
+    req = urllib.request.Request(url + path,
                                  data=json.dumps(payload).encode(),
                                  headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=300) as r:
@@ -908,6 +969,326 @@ def serve(root: str, k2_per_forward: int, k1_per_forward: int):
                     f"{(outb - out).abs().max().item():.3g}")
             del s
     return k2, k1, numbers
+
+
+BURST = 16                       # phase 3b: concurrent one-prompt requests
+COALESCE_S = 0.05                # phase 3b: the window, --coalesce-ms 50
+WATCH_S = 0.2                    # phase 3b: the poll, --watch 0.2
+DP_SERVE_BATCHES = {16: 100, 64: 30}  # phase 3b: batches a window
+
+
+def _write_gen(weights: str, name: str, seed: int) -> None:
+    """A seeded full-width generator's state_dict as `name`, written to a
+    temporary name and renamed into place, as the trainer writes."""
+    import torch
+
+    tmp = os.path.join(weights, name + ".tmp")
+    torch.save(_seeded_generator(seed).state_dict(), tmp)
+    os.replace(tmp, os.path.join(weights, name))
+
+
+def _burst(url: str, n: int):
+    """n one-prompt requests sent at once: (wall s, latencies ms, codes)."""
+    lat, codes = [0.0] * n, [None] * n
+
+    def one(i):
+        t = time.perf_counter()
+        try:
+            codes[i] = post(url, {"prompts": ["a small red bird"]})[0]
+        except Exception as e:  # the gate below reports it
+            codes[i] = repr(e)
+        lat[i] = (time.perf_counter() - t) * 1e3
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    return time.perf_counter() - t0, lat, codes
+
+
+def _pcts(ms) -> dict:
+    ms = np.asarray(ms)
+    return {"p50": float(np.percentile(ms, 50)),
+            "p99": float(np.percentile(ms, 99)), "max": float(ms.max())}
+
+
+def _running(server) -> str:
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def _closed(server) -> None:
+    server.shutdown()
+    server.server_close()
+
+
+def serve_rest(root: str, k2_per_forward: int, k1_per_forward: int):
+    """Phase 3b. Returns ({path: (K2, K1) launches}, numbers)."""
+    import torch
+
+    from gan_codes_tpu_torch import serve as serve_mod
+    from gan_codes_tpu_torch.models.torch_import import load_generator
+    from gan_codes_tpu_torch.ops.kernels import fused_affine, fused_modconv
+
+    K2 = fused_modconv.fused_modconv3x3
+    K1 = fused_affine.fused_double_affine_leaky
+    weights = os.path.join(root, "weights")
+    args = (os.path.join(root, "data"), os.path.join(root, "text_encoder.pth"),
+            weights)
+    bs = 16
+    sampler, epoch = serve_mod.build_sampler(*args, batch_size=bs)
+    if epoch != 1:
+        raise AssertionError(f"phase 3's weights dir serves gen_{epoch}")
+    for i, name in enumerate(("gen_2.pth", "gen_ema_1.pth",
+                              "gen_ema_2.pth")):
+        _write_gen(weights, name, SEED + 10 + i)
+    tok = np.random.default_rng(SEED + 3)
+    captions = tok.integers(1, 5450, (bs, 18))
+    cap_lens = tok.integers(1, 19, (bs,))
+    noise = torch.randn((bs, 100), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(SEED))
+    numbers, launches = {}, {}
+
+    def on_file(name: str):
+        return serve_mod.Sampler(
+            sampler.cfg, load_generator(os.path.join(weights, name))[0],
+            sampler.text_encoder, batch_size=bs)
+
+    def same_as(s, name: str, what: str) -> None:
+        got = s.pipeline(captions, cap_lens, noise)
+        want = on_file(name).pipeline(captions, cap_lens, noise)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"{what}: a batch differs from a sampler built on {name} "
+                f"(max|err| {(got - want).abs().max().item()})")
+
+    # (a) --ema
+    ema, ema_epoch = serve_mod.build_sampler(*args, batch_size=bs,
+                                             use_ema=True)
+    if ema_epoch != 2:
+        raise AssertionError(f"--ema serves gen_ema_{ema_epoch}")
+    same_as(ema, "gen_ema_2.pth", "--ema")
+    del ema
+    log("[serve-rest] (a) build_sampler(use_ema=True) serves "
+        "gen_ema_2.pth: a batch equals a sampler on it bit for bit")
+
+    # (b) POST /reload under traffic; the restore (outside the dispatch
+    # lock) and the swap (inside it) timed apart. The swap is the host's
+    # time under the lock (no synchronize: the lock is not held for the
+    # batch in flight) and its copies' device time (CUDA events around
+    # them, read after the server closes)
+    parts = {"restore_ms": [], "swap_host_ms": [], "swap_device_ms": []}
+    swap_events = []
+
+    def timed_reloader(epoch=None):
+        t = time.perf_counter()
+        out = sampler.reload_generator(epoch=epoch)
+        parts["restore_ms"].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def timed_swap(state_dict):
+        t = time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        serve_mod.Sampler.swap_generator_params(sampler, state_dict)
+        ev[1].record()
+        parts["swap_host_ms"].append((time.perf_counter() - t) * 1e3)
+        swap_events.append(ev)
+
+    sampler.swap_generator_params = timed_swap
+    server = serve_mod.make_http_server(sampler, port=0, epoch=epoch,
+                                        reloader=timed_reloader)
+    url = _running(server)
+    traffic, pause = threading.Event(), threading.Lock()
+    client = {"codes": [], "ms": [], "spans": []}
+
+    def client_loop():
+        while traffic.is_set():
+            with pause:
+                t = time.perf_counter()
+                try:
+                    code = post(url, {"prompts": ["a small red bird"]})[0]
+                except Exception as e:  # the gate below reports it
+                    code = repr(e)
+                client["codes"].append(code)
+                client["ms"].append((time.perf_counter() - t) * 1e3)
+                client["spans"].append((t, time.perf_counter()))
+
+    traffic.set()
+    compared = [0, 0]  # K2, K1 of the comparisons, which are not served
+    K2.launches = K1.launches = 0  # main path starts here
+    th = threading.Thread(target=client_loop)
+    th.start()
+    reload_ms, windows = [], []
+    try:
+        time.sleep(0.3)
+        for payload, want, pinned, name in (({}, 2, False, "gen_2.pth"),
+                                            ({"epoch": 1}, 1, True,
+                                             "gen_1.pth")):
+            t = time.perf_counter()
+            code, body = post(url, payload, "/reload")
+            windows.append((t, time.perf_counter()))
+            reload_ms.append((windows[-1][1] - t) * 1e3)
+            if (code, body["epoch"], body["pinned"]) != (200, want, pinned):
+                raise AssertionError(f"POST /reload {payload}: {code} {body}")
+            time.sleep(0.3)  # traffic on the new weights
+            with pause:  # no request in flight
+                before = K2.launches, K1.launches
+                same_as(sampler, name, f"after POST /reload {payload}")
+                compared[0] += K2.launches - before[0]
+                compared[1] += K1.launches - before[1]
+            h = get(url, "/healthz")
+            if (h["epoch"], h["pinned"]) != (want, pinned):
+                raise AssertionError(f"/healthz after {payload}: {h}")
+        m = get(url, "/metrics")
+    finally:
+        traffic.clear()
+        th.join(60)
+        _closed(server)
+        del sampler.swap_generator_params
+    k2, k1 = K2.launches - compared[0], K1.launches - compared[1]  # ends
+    torch.cuda.synchronize()
+    parts["swap_device_ms"] = [a.elapsed_time(b) for a, b in swap_events]
+    n = len(client["codes"])
+    bad = [c for c in client["codes"] if c != 200]
+    if m["reloads_total"] != 2 or bad or n < 10 or \
+            (k2, k1) != (k2_per_forward * n, k1_per_forward * n):
+        raise AssertionError(f"/reload under traffic: reloads_total "
+                             f"{m['reloads_total']}, {n} requests, not 200: "
+                             f"{bad[:3]}; K2 {k2}, K1 {k1}")
+    launches["serve_reload"] = (k2, k1)
+    overlapping = [ms for ms, (a, b) in zip(client["ms"], client["spans"])
+                   if any(a < w1 and b > w0 for w0, w1 in windows)]
+    numbers["reload"] = dict(parts, reload_ms=reload_ms,
+                             requests=len(client["codes"]),
+                             request_ms=_pcts(client["ms"]),
+                             during_reload_ms=overlapping)
+    log(f"[serve-rest] (b) POST /reload {{}} -> epoch 2, {{\"epoch\": 1}} -> "
+        f"pinned epoch 1, each then equal to a sampler on its file bit for "
+        f"bit; reload wall ms {['%.1f' % x for x in reload_ms]} (restore "
+        f"{['%.1f' % x for x in parts['restore_ms']]}, swap under the lock "
+        f"{['%.2f' % x for x in parts['swap_host_ms']]} host, its copies "
+        f"{['%.3f' % x for x in parts['swap_device_ms']]} device); "
+        f"{len(client['codes'])} one-prompt requests alongside, all 200, "
+        f"ms {json.dumps(numbers['reload']['request_ms'])}, those "
+        f"overlapping a reload {['%.1f' % x for x in overlapping]}")
+
+    # (c) --watch
+    server = serve_mod.make_http_server(
+        sampler, port=0, epoch=1, reloader=sampler.reload_generator,
+        watch_interval=WATCH_S, latest_epoch_fn=sampler.latest_generator_epoch)
+    url = _running(server)
+    try:
+        for name, want in (("gen_2.pth", 2), ("gen_3.pth", 3)):
+            if want == 3:
+                _write_gen(weights, "gen_3.pth", SEED + 13)
+            t = time.perf_counter()
+            while get(url, "/healthz")["epoch"] != want:
+                if time.perf_counter() - t > 10:
+                    raise AssertionError(f"--watch: epoch {want} not served "
+                                         "within 10 s")
+                time.sleep(0.02)
+        watch_s = time.perf_counter() - t
+        code, _ = post(url, {"epoch": 3}, "/reload")
+        _write_gen(weights, "gen_4.pth", SEED + 14)
+        time.sleep(1.0)
+        h = get(url, "/healthz")
+    finally:
+        _closed(server)
+    if code != 200 or (h["epoch"], h["pinned"]) != (3, True):
+        raise AssertionError(f"--watch: the pin on epoch 3 did not hold "
+                             f"against gen_4.pth: {h}")
+    numbers["watch_s"] = watch_s
+    log(f"[serve-rest] (c) --watch {WATCH_S}: gen_3.pth (temp + rename) "
+        f"served after {watch_s:.3f} s; the pin on epoch 3 held against "
+        f"gen_4.pth for 1 s")
+
+    # (d) --coalesce-ms: one burst coalesced, the same burst without
+    for window in (COALESCE_S, None):
+        server = serve_mod.make_http_server(sampler, port=0, epoch=3,
+                                            coalesce_window=window)
+        url = _running(server)
+        try:
+            K2.launches = K1.launches = 0  # main path starts here
+            wall, ms, codes = _burst(url, BURST)
+            k2, k1 = K2.launches, K1.launches  # main path ends here
+            m = get(url, "/metrics")
+        finally:
+            _closed(server)
+        n = m.get("coalesced_dispatches", BURST)
+        if any(c != 200 for c in codes) or (window and n > 4) or \
+                (k2, k1) != (k2_per_forward * n, k1_per_forward * n):
+            raise AssertionError(f"burst (coalesce {window}): codes {codes}, "
+                                 f"{n} dispatches, K2 {k2}, K1 {k1}")
+        key = "coalesced" if window else "plain"
+        launches[f"serve_burst_{key}"] = (k2, k1)
+        numbers[f"burst_{key}"] = {"wall_s": wall, "dispatches": n,
+                                   "request_ms": _pcts(ms)}
+    log(f"[serve-rest] (d) {BURST} one-prompt requests at once: coalesced "
+        f"({COALESCE_S * 1e3:.0f} ms) {json.dumps(numbers['burst_coalesced'])}"
+        f"; without {json.dumps(numbers['burst_plain'])}")
+
+    # (e) data-parallel serving: two replicas on the one card, and the
+    # CLI's --dp (every card: one here), against the plain sampler
+    def trio(b):
+        plain = serve_mod.build_sampler(*args, batch_size=b, seed=SEED)[0]
+        dp1 = serve_mod.build_sampler(*args, batch_size=b, seed=SEED,
+                                      data_parallel=True)[0]
+        dp2 = serve_mod.Sampler(
+            plain.cfg, load_generator(os.path.join(weights, "gen_4.pth"))[0],
+            plain.text_encoder, batch_size=b, seed=SEED,
+            devices=["cuda:0", "cuda:0"])
+        return {"plain": plain, "dp1": dp1, "dp2": dp2}
+
+    samplers = trio(bs)
+    caps = np.concatenate([captions, captions[:4]])  # 20 rows: 2 batches
+    lens = np.concatenate([cap_lens, cap_lens[:4]])
+    want = samplers["plain"].generate_tokens(caps, lens)
+    errs = {}
+    for key in ("dp1", "dp2"):
+        K2.launches = K1.launches = 0  # main path starts here
+        got = samplers[key].generate_tokens(caps, lens)
+        k2, k1 = K2.launches, K1.launches  # main path ends here
+        reps = len(samplers[key].replicas)
+        errs[key] = float(np.abs(got - want).max())
+        if not np.allclose(got, want, atol=1e-4, rtol=1e-4) or \
+                (k2, k1) != (2 * reps * k2_per_forward,
+                             2 * reps * k1_per_forward):
+            raise AssertionError(f"{key}: max|err| {errs[key]}, K2 {k2}, "
+                                 f"K1 {k1} over 2 batches x {reps} replicas")
+        launches[f"serve_{key}"] = (k2, k1)
+    profiles = {}
+    for key in ("plain", "dp2"):  # the device's view of one batch of 16
+        res = _profile(lambda: samplers[key]._launch(captions, cap_lens,
+                                                     noise), 3)
+        profiles[key] = res and {k: res[0][k] for k in (
+            "kernels_per_call", "device_busy_ms_per_call",
+            "span_ms_per_call", "idle_share")}
+    img_s = {}
+    for b in (16, 64):
+        s = samplers if b == bs else trio(b)
+        order = ["plain", "dp1", "dp2", "dp2", "dp1", "plain"]
+        for key in order:
+            img_s.setdefault(f"{key}_bs{b}", []).append(
+                s[key].throughput(n_batches=DP_SERVE_BATCHES[b]))
+        del s
+    numbers["dp"] = {"max_abs_err": errs, "img_per_s": img_s,
+                     "profile_bs16": profiles}
+    log(f"[serve-rest] (e) 20 rows (2 batches of 16): dp1 (the CLI's --dp "
+        f"here: {[str(d) for d, _, _ in samplers['dp1'].replicas]}) and dp2 "
+        f"([cuda:0, cuda:0]) against the plain "
+        f"sampler max|err| {json.dumps(errs)}; img/s (windows plain, dp1, "
+        f"dp2, dp2, dp1, plain): {json.dumps(img_s)}; a batch of 16 "
+        f"(profiler): {json.dumps(profiles)}")
+    del samplers
+    out = os.path.join(root, "served_dp")
+    paths = serve_mod.main(*args, out, ["a small red bird", "a blue bird"],
+                           batch_size=bs, data_parallel=True)
+    if len(paths) != 2 or not all(os.path.exists(p) for p in paths):
+        raise AssertionError(f"serve.main(data_parallel=True): {paths}")
+    return launches, numbers
 
 
 def _group(name: str) -> str:
@@ -2081,6 +2462,175 @@ def dp_phase(root: str, inception_path: str, entry_numbers: dict,
     return tuple(want), numbers
 
 
+INTEROP_LEFT_OUT = ("discriminator", "img_forward.1.gamma")  # no Adam entry
+INTEROP_TIMEOUT_S = 300          # phase 8: each torch_import process
+
+
+def _torch_import(*argv: str) -> str:
+    r = subprocess.run([sys.executable, "-m",
+                        "gan_codes_tpu_torch.models.torch_import", *argv],
+                       cwd=REPO, capture_output=True, text=True,
+                       timeout=INTEROP_TIMEOUT_S)
+    if r.returncode != 0:
+        raise AssertionError(f"torch_import {argv} failed (rc "
+                             f"{r.returncode}):\n{r.stdout[-4000:]}\n"
+                             f"{r.stderr[-4000:]}")
+    return r.stdout
+
+
+def interop_phase(root: str):
+    """Phase 8. Returns ((K2, K1, K1 bwd) launches of the resumed
+    `train_entry`, interop numbers)."""
+    import contextlib
+
+    import torch
+    from PIL import Image
+
+    from gan_codes_tpu_torch import serve as serve_mod
+    from gan_codes_tpu_torch import train_entry
+    from gan_codes_tpu_torch.config import GANConfig
+    from gan_codes_tpu_torch.generate import load_vocab
+    from gan_codes_tpu_torch.models.torch_import import (load_text_encoder,
+                                                         reference_order)
+    from gan_codes_tpu_torch.train.state import create_train_state
+    from gan_codes_tpu_torch.train.step import make_train_step
+
+    data = os.path.join(root, "cub")
+    te_path = os.path.join(root, "entry_text_encoder.pth")
+    n_words = len(load_vocab(data)[0])
+    numbers = {}
+    # a full-width fp32 state after 2 steps, as the reference would save it
+    t0 = time.perf_counter()
+    cfg = GANConfig.for_image_size(256, vocab_size=n_words,
+                                   batch_size=TRAIN_BATCH)
+    state = create_train_state(cfg, SEED, device="cuda")
+    for module in (state.generator, state.discriminator):
+        _gammas_away_from_0(module, SEED)
+    te = load_text_encoder(te_path)[0].cuda().eval().requires_grad_(False)
+    dev = torch.Generator(device="cuda").manual_seed(SEED)
+    images = torch.rand((TRAIN_BATCH, 256, 256, 3), generator=dev,
+                        device="cuda") * 2 - 1
+    captions = torch.randint(1, n_words, (TRAIN_BATCH, 18), generator=dev,
+                             device="cuda")
+    cap_lens = torch.randint(1, 19, (TRAIN_BATCH,),
+                             generator=torch.Generator().manual_seed(SEED))
+    step = make_train_step(cfg)
+    for _ in range(2):
+        step(state, te, images, captions, cap_lens)
+    ck = {"epoch": 0, "g_losses": [0.5], "d_losses": [1.5],
+          "d_gp_losses": [0.1], "txtimg_losses": [0.9], "is_scores": [1.0],
+          "fid_scores": [300.0]}
+    source = {}
+    for key, opt_key, module, opt in (
+            ("generator", "g_optimizer", state.generator, state.g_opt),
+            ("discriminator", "d_optimizer", state.discriminator,
+             state.d_opt)):
+        ref = reference_order({k: v.detach().cpu()
+                               for k, v in module.state_dict().items()})
+        adam = opt.adam.state_dict()
+        names = [n for n, _ in module.named_parameters()]
+        by_name = {n: {f: v.detach().cpu() for f, v in
+                       adam["state"][i].items()} for i, n in enumerate(names)}
+        source[key] = (ref, by_name)
+        ck[key] = ref
+        ck[opt_key] = {
+            "state": {j: by_name[k] for j, k in enumerate(ref)
+                      if (key, k) != INTEROP_LEFT_OUT},
+            "param_groups": [dict(adam["param_groups"][0],
+                                  params=list(range(len(ref))))]}
+    pt = os.path.join(root, "reference_checkpoint.pt")
+    torch.save(ck, pt)
+    numbers["source_s"] = time.perf_counter() - t0
+
+    # the import, a process of its own as a user runs it
+    out = os.path.join(root, "imported_weights")
+    t = time.perf_counter()
+    said = _torch_import("--ckpt", pt, "--out", out, "--vocab-size",
+                         str(n_words), "--batch-size", str(TRAIN_BATCH))
+    numbers["import_s"] = time.perf_counter() - t
+    if "1 param(s) had no Adam state" not in said:
+        raise AssertionError(f"the import did not name the parameter "
+                             f"without Adam state:\n{said}")
+    blob = torch.load(os.path.join(out, "checkpoint"), map_location="cpu",
+                      weights_only=True)
+    n_tensors = 0
+    for key, opt in (("generator", "g_opt"), ("discriminator", "d_opt")):
+        ref, by_name = source[key]
+        module = state.generator if key == "generator" else \
+            state.discriminator
+        n_tensors += _bit_equal(_snapshot(blob[key]), ref, key)
+        if key == "generator":
+            n_tensors += _bit_equal(_snapshot(blob["g_ema"]), ref, "g_ema")
+        for i, (n, _) in enumerate(module.named_parameters()):
+            got, want = blob[opt]["state"][i], by_name[n]
+            if (key, n) == INTEROP_LEFT_OUT:
+                want = {"step": want["step"],
+                        "exp_avg": torch.zeros_like(want["exp_avg"]),
+                        "exp_avg_sq": torch.zeros_like(want["exp_avg_sq"])}
+            n_tensors += _bit_equal(_snapshot(got), want, f"{opt}.{n}")
+    if blob["step"] != 2:
+        raise AssertionError(f"imported step {blob['step']} != 2")
+    log(f"[interop] reference checkpoint.pt (256px fp32 state after 2 "
+        f"steps, reference key order, no Adam entry for "
+        f"{INTEROP_LEFT_OUT}) imported by `python -m gan_codes_tpu_torch."
+        f"models.torch_import --ckpt` in {numbers['import_s']:.1f}s: "
+        f"{n_tensors} tensors bit for bit (G, D, EMA, exp_avg, exp_avg_sq, "
+        f"steps), step 2")
+
+    # train_entry resumes it: one more epoch of 2 steps on phase 5's data
+    k2, k1, k1b = _counters()
+    tee = _Tee(sys.stdout)
+    k2.launches = k1.launches = k1b.launches = 0  # main path starts here
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        hist = train_entry.train(data, te_path,
+                                 os.path.join(root, "imported_images"), out,
+                                 image_size=256, batch_size=TRAIN_BATCH,
+                                 num_epochs=2, n_channels=32, device="cuda")
+    numbers["resume_s"] = time.perf_counter() - t
+    counts = (k2.launches, k1.launches, k1b.launches)  # main path ends here
+    steps = ENTRY_TRAIN // TRAIN_BATCH
+    want = (14 * (steps + 1), 0, 14 * steps)
+    if "Resuming from epoch 1" not in tee.buf.getvalue():
+        raise AssertionError("train_entry did not resume the import")
+    if counts != want or len(hist["g_losses"]) != 2 or not all(
+            np.isfinite(hist[k][1]) for k in ("g_losses", "d_losses",
+                                              "d_gp_losses")):
+        raise AssertionError(f"resumed epoch: launches {counts} (want "
+                             f"{want}), histories {hist}")
+    numbers["resumed_losses"] = {k: v[1] for k, v in hist.items()}
+    log(f"[interop] train_entry --weights <import> resumed from epoch 1: "
+        f"{steps} steps and one eval batch, launches (K2, K1, K1 bwd) "
+        f"{counts}, losses {json.dumps(numbers['resumed_losses'])}, "
+        f"{numbers['resume_s']:.1f}s")
+
+    # --export, then serve one request from the exported file
+    served = os.path.join(root, "exported")
+    os.makedirs(served)
+    exported = os.path.join(served, "gen_1.pth")
+    t = time.perf_counter()
+    _torch_import("--export", out, "--out", exported)
+    numbers["export_s"] = time.perf_counter() - t
+    _bit_equal(_snapshot(torch.load(exported, weights_only=True)),
+               _snapshot(torch.load(os.path.join(out, "gen_1.pth"),
+                                    weights_only=True)), "export")
+    sampler, epoch = serve_mod.build_sampler(data, te_path, served,
+                                             batch_size=4)
+    server = serve_mod.make_http_server(sampler, port=0, epoch=epoch)
+    url = _running(server)
+    try:
+        code, body = post(url, {"prompts": ["this bird has a red crown"]})
+    finally:
+        _closed(server)
+    img = np.asarray(Image.open(io.BytesIO(base64.b64decode(
+        body["images"][0]))))
+    if code != 200 or img.shape != (256, 256, 3):
+        raise AssertionError(f"serving the export: {code} {img.shape}")
+    log(f"[interop] --export of gen_1.pth ({numbers['export_s']:.1f}s) "
+        f"equals the weights dir's bit for bit and serves one 256px PNG")
+    return counts, numbers
+
+
 def main() -> int:
     import torch
 
@@ -2116,8 +2666,12 @@ def main() -> int:
         os.makedirs(os.path.join(root, "data"))
         write_weights(root)
         k2, k1, numbers = serve(root, k2_n, k1_n)
-    log("[serve] " + json.dumps(numbers))
-    log(f"[serve] phase took {time.perf_counter() - t0:.1f}s")
+        log("[serve] " + json.dumps(numbers))
+        log(f"[serve] phase took {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        rest_launches, rest_numbers = serve_rest(root, k2_n, k1_n)
+    log("[serve-rest] " + json.dumps(rest_numbers))
+    log(f"[serve-rest] phase took {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     (t_k2, t_k1, t_k1b), train_numbers = train()
     log("[train] " + json.dumps(train_numbers))
@@ -2140,24 +2694,36 @@ def main() -> int:
         t0 = time.perf_counter()
         (d_k2, d_k1, d_k1b), dp_numbers = dp_phase(
             root, inception_path, entry_numbers, bare_img_s)
-    log("[dp] " + json.dumps(dp_numbers))
-    log(f"[dp] phase took {time.perf_counter() - t0:.1f}s")
+        log("[dp] " + json.dumps(dp_numbers))
+        log(f"[dp] phase took {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        (i_k2, i_k1, i_k1b), interop_numbers = interop_phase(root)
+    log("[interop] " + json.dumps(interop_numbers))
+    log(f"[interop] phase took {time.perf_counter() - t0:.1f}s")
     # launches on the main paths; K3 is on none (as in the JAX package),
     # so its only launches are the kernel checks', which do not count
     launches = {"fused_modconv3x3": {"serve": k2, "train": t_k2,
                                      "train_entry": e_k2, "eval": v_k2,
-                                     "dp_entry": d_k2},
+                                     "dp_entry": d_k2,
+                                     "interop_resume": i_k2},
                 "fused_double_affine_leaky": {"serve": k1, "train": t_k1,
                                               "train_entry": e_k1,
-                                              "eval": v_k1, "dp_entry": d_k1},
+                                              "eval": v_k1, "dp_entry": d_k1,
+                                              "interop_resume": i_k1},
                 "fused_double_affine_leaky_bwd": {"serve": 0,
                                                   "train": t_k1b,
                                                   "train_entry": e_k1b,
                                                   "eval": 0,
-                                                  "dp_entry": d_k1b},
+                                                  "dp_entry": d_k1b,
+                                                  "interop_resume": i_k1b},
                 "fused_resblock_g": {"serve": 0, "train": 0,
                                      "train_entry": 0, "eval": 0,
-                                     "dp_entry": 0}}
+                                     "dp_entry": 0, "interop_resume": 0}}
+    for path, (r_k2, r_k1) in rest_launches.items():
+        launches["fused_modconv3x3"][path] = r_k2
+        launches["fused_double_affine_leaky"][path] = r_k1
+        launches["fused_double_affine_leaky_bwd"][path] = 0
+        launches["fused_resblock_g"][path] = 0
     kernels = []
     for name, s in summary.items():
         by_path = dict(launches[name])

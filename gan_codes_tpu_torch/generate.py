@@ -83,22 +83,18 @@ def main(data_dir: str = "data",
     """Interactive prompt -> image (reference `test_generate.py:21-84`).
 
     Restores the newest `gen_N.pth` in `gen_weights_dir` with its
-    `config.json` (as `serve.build_sampler` does) and the vocab of
-    `<data_dir>/captions.pickle`. `use_ema` samples from `gen_ema_N.pth`,
-    the EMA generator, instead. `show` also opens the saved image in the
-    system viewer (opt-in: the reference always calls `image.show()`).
+    `config.json` (through `serve.build_sampler`) and the vocab of
+    `<data_dir>/captions.pickle`. `use_ema` samples from the newest
+    `gen_ema_N.pth`, the EMA generator, instead. `show` also opens the
+    saved image in the system viewer (opt-in: the reference always calls
+    `image.show()`).
     Runs on CUDA unless `device="cpu"`."""
-    from .models.torch_import import load_generator
     from .serve import build_sampler
     from .utils import image_io
 
-    sampler, epoch = build_sampler(data_dir, encoder_weights_path,
-                                   gen_weights_dir, batch_size=1,
-                                   device=device)
-    if use_ema:
-        ema, _ = load_generator(os.path.join(gen_weights_dir,
-                                             f"gen_ema_{epoch}.pth"))
-        sampler.swap_generator_params(ema.state_dict())
+    sampler, _ = build_sampler(data_dir, encoder_weights_path,
+                               gen_weights_dir, batch_size=1,
+                               use_ema=use_ema, device=device)
 
     if prompt is None:
         prompt = input("Enter your text prompt: ").strip()

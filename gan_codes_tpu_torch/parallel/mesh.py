@@ -21,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Mapping, Optional
+from typing import Any, List, Mapping, Optional
 
 import torch
 import torch.distributed as dist
@@ -108,6 +108,17 @@ def init_mesh(device: str | torch.device = "cuda",
                             rank=layout["rank"], world_size=layout["world"],
                             **kwargs)
     return Mesh(device=dev, distributed=True, **layout)
+
+
+def local_devices(device: str | torch.device = "cuda"
+                  ) -> List[torch.device]:
+    """The devices of this process for data-parallel serving, the
+    counterpart of JAX's `make_mesh()` over the local devices: every CUDA
+    card (raises without one), or the CPU alone."""
+    dev = serving_device(device)
+    if dev.type == "cpu":
+        return [dev]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def close_mesh(mesh: Optional[Mesh]) -> None:

@@ -6,8 +6,12 @@ and turns prompt or caption-token batches into images at a fixed batch size
 (partial batches are padded, as the JAX package pads them to reuse its
 compiled program). Every DFBlock of the generator runs through the
 hand-written CUDA kernels (`ops/kernels/`). `build_sampler` loads the
-reference-format weights, `make_http_server` serves them over HTTP, and
-`main` is the batch CLI.
+reference-format weights (`gen_N.pth`, or the EMA generator's
+`gen_ema_N.pth`) and gives the sampler its reload hooks,
+`make_http_server` serves them over HTTP (hot reload, a weights-dir
+watcher and request coalescing included), and `main` is the batch CLI.
+`Sampler(devices=[...])` serves data-parallel in one process: one replica
+per device, each padded batch split row-major over them.
 
 Precision: on CUDA the entry points turn TF32 off for fp32 convs and
 matmuls (`utils/device.py::serving_device`), so fp32 serving is fp32.
@@ -18,10 +22,11 @@ parameters back up to fp32).
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import json
 import os
-import re
 import sys
 import time
 import traceback
@@ -34,10 +39,20 @@ from .config import GANConfig
 from .generate import load_vocab, preprocess_caption
 from .models.generator import Generator
 from .models.text_encoder import RNNEncoder
-from .models.torch_import import load_generator, load_text_encoder
+from .models.torch_import import (_cfg_from_generator, _maybe_unwrap,
+                                  _weights_name, latest_generator_epoch,
+                                  latest_generator_weights, load_generator,
+                                  load_text_encoder, torch_load_ref)
+from .parallel.mesh import local_devices
 from .utils.device import serving_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _on(device: torch.device):
+    """`device` made the current card for the block (the CPU needs none)."""
+    return torch.cuda.device(device) if device.type == "cuda" \
+        else contextlib.nullcontext()
 
 
 class Sampler:
@@ -46,21 +61,57 @@ class Sampler:
     `generator` and `text_encoder` are moved to `device` (CUDA unless the
     caller passes "cpu"; raises without a card). The generator's parameter
     dtype is the serving dtype. Noise comes from a torch.Generator on the
-    device seeded with `seed`, advanced once per dispatched batch."""
+    device seeded with `seed`, advanced once per dispatched batch.
+
+    `devices` (a list of devices, all CUDA or all the CPU; it replaces
+    `device`) serves data-parallel, the counterpart of the JAX Sampler's
+    `mesh`: one replica of the generator and the text encoder per entry,
+    each made the current card while it runs, and each padded batch split
+    row-major over them, so `batch_size` must be divisible by the count.
+    A list may name one card twice. The batch's noise is drawn once on the
+    first device, so the images do not depend on the replica count.
+
+    Weight-reload hooks (set by `build_sampler`, which owns the weights
+    directory; None on a Sampler built directly):
+    `reload_generator(epoch=None) -> (state_dict, epoch)` reads a
+    generator's weights at the serving dtype onto the device,
+    `latest_generator_epoch()
+    -> Optional[int]` is the cheap newest-epoch probe of the `--watch`
+    poller."""
+
+    reload_generator = None
+    latest_generator_epoch = None
 
     def __init__(self, cfg: GANConfig, generator: Generator,
                  text_encoder: RNNEncoder,
                  word2code: Optional[Dict[str, int]] = None,
                  batch_size: int = 8, seed: int = 0,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 devices: Optional[Sequence[str | torch.device]] = None):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
-        self.device = serving_device(device)
+        if devices is not None:
+            devs = [serving_device(d) for d in devices]
+            if not devs or len({d.type for d in devs}) != 1:
+                raise ValueError("devices must name one or more devices, "
+                                 f"all CUDA or all the CPU: {devices}")
+            if batch_size % len(devs):
+                raise ValueError(
+                    f"batch_size {batch_size} not divisible by the "
+                    f"{len(devs)} devices")
+        else:
+            devs = [serving_device(device)]
+        self.device = devs[0]
         self.cfg = cfg
         self.word2code = word2code
         self.batch_size = batch_size
-        self.generator = generator.to(self.device).eval()
-        self.text_encoder = text_encoder.to(self.device).eval()
+        # the copies are made before any replica moves
+        mods = [(generator, text_encoder)] + [
+            (copy.deepcopy(generator), copy.deepcopy(text_encoder))
+            for _ in devs[1:]]
+        self.replicas = [(dev, g.to(dev).eval(), te.to(dev).eval())
+                         for dev, (g, te) in zip(devs, mods)]
+        _, self.generator, self.text_encoder = self.replicas[0]
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
 
     @property
@@ -72,20 +123,39 @@ class Sampler:
                            generator=self._rng, device=self.device)
 
     @torch.inference_mode()
+    def _launch(self, captions, cap_lens, noise) -> List[torch.Tensor]:
+        """Encode + generate one batch, each replica on its block of rows,
+        without waiting for the devices: the replicas' images, each on its
+        device. The row count must be divisible by the replica count."""
+        caps = torch.as_tensor(np.asarray(captions, np.int64))
+        lens = torch.as_tensor(np.asarray(cap_lens, np.int64))
+        noise = torch.as_tensor(noise)
+        k, rest = divmod(caps.shape[0], len(self.replicas))
+        if rest:
+            raise ValueError(f"{caps.shape[0]} rows not divisible by the "
+                             f"{len(self.replicas)} replicas")
+        outs = []
+        for i, (dev, g, te) in enumerate(self.replicas):
+            rows = slice(i * k, (i + 1) * k)
+            with _on(dev):
+                sents = te(caps[rows].to(dev), lens[rows])
+                outs.append(g(noise[rows].to(dev, self.dtype), sents))
+        return outs
+
     def pipeline(self, captions, cap_lens, noise) -> torch.Tensor:
         """Encode + generate one batch: captions [B, T], cap_lens [B] (each
-        1..T), noise [B, latent_dim] -> images [B, H, W, 3] on the device,
-        in the serving dtype. Noise is cast to the serving dtype."""
-        caps = torch.as_tensor(np.asarray(captions, np.int64)).to(self.device)
-        lens = torch.as_tensor(np.asarray(cap_lens, np.int64))
-        sents = self.text_encoder(caps, lens)
-        noise = torch.as_tensor(noise).to(self.device, self.dtype)
-        return self.generator(noise, sents)
+        1..T), noise [B, latent_dim] -> images [B, H, W, 3] on the (first)
+        device, in the serving dtype. Noise is cast to the serving dtype."""
+        outs = self._launch(captions, cap_lens, noise)
+        if len(outs) == 1:
+            return outs[0]
+        return torch.cat([o.to(self.device) for o in outs])
 
     def swap_generator_params(self, state_dict: Dict[str, torch.Tensor]
                               ) -> None:
-        """Replace the served generator weights with a reference-keyed
-        state_dict of the same architecture (cast to the serving dtype).
+        """Replace the served generator weights, in every replica, with a
+        reference-keyed state_dict of the same architecture (cast to the
+        serving dtype).
 
         Not thread-safe on its own: callers serialize against in-flight
         generates."""
@@ -103,8 +173,10 @@ class Sampler:
             raise ValueError("new generator params' shapes do not match the "
                              "served generator's: " + "; ".join(errs[:5]))
         with torch.no_grad():
-            for k, v in state_dict.items():
-                own[k].copy_(v)
+            for _, g, _ in self.replicas:
+                mine = g.state_dict()
+                for k, v in state_dict.items():
+                    mine[k].copy_(v)
 
     def generate_tokens(self, captions: np.ndarray,
                         cap_lens: np.ndarray) -> np.ndarray:
@@ -123,8 +195,10 @@ class Sampler:
             if pad:
                 c = np.concatenate([c, np.zeros((pad, c.shape[1]), c.dtype)])
                 l = np.concatenate([l, np.ones((pad,), l.dtype)])
-            img = self.pipeline(c, l, self._next_noise(bs))
-            outs.append(img[: bs - pad].float().cpu().numpy())
+            # every replica's rows launch before the first copy to the host
+            imgs = self._launch(c, l, self._next_noise(bs))
+            img = np.concatenate([o.float().cpu().numpy() for o in imgs])
+            outs.append(img[: bs - pad])
         return np.concatenate(outs, axis=0)[:n]
 
     def warmup(self) -> float:
@@ -136,9 +210,9 @@ class Sampler:
         rng = torch.Generator(device=self.device).manual_seed(0)
         noise = torch.randn((self.batch_size, self.cfg.generator.latent_dim),
                             generator=rng, device=self.device)
-        out = self.pipeline(np.ones((self.batch_size, max_len), np.int64),
-                            np.ones((self.batch_size,), np.int64), noise)
-        out.float().cpu()  # waits for the device
+        for out in self._launch(np.ones((self.batch_size, max_len), np.int64),
+                                np.ones((self.batch_size,), np.int64), noise):
+            out.float().cpu()  # waits for the device
         return time.perf_counter() - t0
 
     def tokenize_prompts(
@@ -159,11 +233,13 @@ class Sampler:
         return self.generate_tokens(*self.tokenize_prompts(prompts))
 
     def throughput(self, n_batches: int = 10) -> float:
-        """Images per second through the pipeline at `batch_size`.
+        """Images per second through the pipeline at `batch_size`, every
+        replica on its rows as served.
 
         One warmup batch, then `n_batches` batches (the caption batch
         rolled each time, so every batch encodes afresh), timed with CUDA
-        events on a card and the host clock on the CPU."""
+        events on each card (the slowest card's window counts) and with
+        the host clock on the CPU."""
         bs = self.batch_size
         max_len = self.cfg.text_encoder.max_len
         rng = np.random.default_rng(0)
@@ -171,38 +247,29 @@ class Sampler:
                                 (bs, max_len))
         cap_lens = rng.integers(1, max_len + 1, (bs,))
         noise = self._next_noise(bs)
-        self.pipeline(captions, cap_lens, noise).float().cpu()
-        cuda = self.device.type == "cuda"
-        if cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
+        for out in self._launch(captions, cap_lens, noise):
+            out.float().cpu()
+        cards = [] if self.device.type != "cuda" else [
+            (d, torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True))
+            for d in dict.fromkeys(d for d, _, _ in self.replicas)]
+        for d, start, _ in cards:
+            start.record(torch.cuda.current_stream(d))
         t0 = time.perf_counter()
         for i in range(n_batches):
-            out = self.pipeline(np.roll(captions, i, axis=0),
+            outs = self._launch(np.roll(captions, i, axis=0),
                                 np.roll(cap_lens, i), noise)
-        if cuda:
-            end.record()
-            end.synchronize()
-            seconds = start.elapsed_time(end) / 1e3
-        else:
-            seconds = time.perf_counter() - t0
-        if not torch.isfinite(out).all():
+        for d, _, end in cards:
+            end.record(torch.cuda.current_stream(d))
+        seconds = time.perf_counter() - t0
+        if cards:
+            seconds = 0.0
+            for _, start, end in cards:
+                end.synchronize()
+                seconds = max(seconds, start.elapsed_time(end) / 1e3)
+        if not all(torch.isfinite(o).all() for o in outs):
             raise RuntimeError("throughput run produced non-finite images")
         return bs * n_batches / seconds
-
-
-def latest_generator_weights(weights_dir: str) -> Tuple[str, int]:
-    """(path, N) of the `gen_N.pth` with the largest N in `weights_dir`."""
-    found = []
-    for name in os.listdir(weights_dir):
-        m = re.fullmatch(r"gen_(\d+)\.pth", name)
-        if m:
-            found.append((int(m.group(1)), name))
-    if not found:
-        raise FileNotFoundError(f"no gen_N.pth in {weights_dir}")
-    epoch, name = max(found)
-    return os.path.join(weights_dir, name), epoch
 
 
 def _arch(gcfg) -> tuple:
@@ -212,23 +279,34 @@ def _arch(gcfg) -> tuple:
 
 def build_sampler(data_dir: str, encoder_weights_path: str,
                   gen_weights_dir: str, image_size: Optional[int] = None,
-                  batch_size: int = 8, dtype: str = "float32",
-                  seed: int = 0, device: str | torch.device = "cuda"
-                  ) -> Tuple[Sampler, int]:
+                  batch_size: int = 8, use_ema: bool = False,
+                  dtype: str = "float32", seed: int = 0,
+                  device: str | torch.device = "cuda",
+                  data_parallel: bool = False) -> Tuple[Sampler, int]:
     """Load vocab and reference-format weights and build the Sampler;
     returns (sampler, N of the gen_N.pth served).
 
     Reads the vocab from `<data_dir>/captions.pickle`, the text encoder
     from `encoder_weights_path`, and the latest `gen_N.pth` in
-    `gen_weights_dir`. The architecture comes from the weights' shapes; an
-    optional JAX-written `config.json` beside them must agree with it and
-    supplies the rest of the config. An explicit `image_size` is checked
-    against the weights."""
+    `gen_weights_dir` (`use_ema`: the latest `gen_ema_N.pth`, the EMA
+    generator the trainer writes beside it). The architecture comes from
+    the weights' shapes; an optional JAX-written `config.json` beside them
+    must agree with it and supplies the rest of the config. An explicit
+    `image_size` is checked against the weights. `data_parallel` serves
+    one replica on every card of the process (`Sampler(devices=...)`).
+
+    The sampler's reload hooks read the same directory: `reload_generator
+    (epoch=None)` the latest (or the given) epoch's weights at the serving
+    dtype, on the (first) device, `latest_generator_epoch()` the newest
+    epoch. Under `use_ema`
+    both look at `gen_ema_N.pth` names: the trainer writes `gen_N.pth`
+    first, so a watcher following `gen_N.pth` would ask for an EMA file
+    that is not there yet."""
     dev = serving_device(device)
     if dtype not in _DTYPES:
         raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
     code2word, word2code = load_vocab(data_dir)
-    gen_path, epoch = latest_generator_weights(gen_weights_dir)
+    gen_path, epoch = latest_generator_weights(gen_weights_dir, use_ema)
     generator, gcfg = load_generator(gen_path)
     if image_size is not None and image_size != gcfg.image_size:
         raise ValueError(
@@ -245,9 +323,7 @@ def build_sampler(data_dir: str, encoder_weights_path: str,
                 f"(n_channels, latent, sentence, hidden, image_size, base) "
                 f"but {gen_path} holds {_arch(gcfg)}")
     else:
-        cfg = GANConfig.for_image_size(gcfg.image_size,
-                                       n_channels=gcfg.n_channels)
-        cfg = dataclasses.replace(cfg, generator=gcfg)
+        cfg = _cfg_from_generator(gcfg)
     text_encoder, tcfg = load_text_encoder(encoder_weights_path)
     tcfg = dataclasses.replace(tcfg, max_len=cfg.text_encoder.max_len)
     if word2code and max(word2code.values()) >= tcfg.vocab_size:
@@ -265,9 +341,126 @@ def build_sampler(data_dir: str, encoder_weights_path: str,
         with torch.no_grad():
             for p in text_encoder.parameters():
                 p.copy_(p.to(torch.bfloat16))
+    devices = None
+    if data_parallel:
+        devices = local_devices(dev)
+        print(f"Serving data-parallel over {len(devices)} devices: "
+              f"{', '.join(map(str, devices))}")
     sampler = Sampler(cfg, generator, text_encoder, word2code=word2code,
-                      batch_size=batch_size, seed=seed, device=dev)
+                      batch_size=batch_size, seed=seed, device=dev,
+                      devices=devices)
+
+    def reload_generator(epoch: Optional[int] = None
+                         ) -> Tuple[Dict[str, torch.Tensor], int]:
+        path, epoch = latest_generator_weights(gen_weights_dir, use_ema,
+                                               epoch)
+        sd = _maybe_unwrap(torch_load_ref(path), "generator")
+        # on the device already, so the swap under the dispatch lock
+        # copies on the card instead of from host memory
+        return {k: v.to(sampler.device, sampler.dtype) for k, v in
+                sd.items()}, epoch
+
+    sampler.reload_generator = reload_generator
+    sampler.latest_generator_epoch = lambda: latest_generator_epoch(
+        gen_weights_dir, use_ema)
     return sampler, epoch
+
+
+class RequestCoalescer:
+    """Dynamic request batching for the HTTP server (the JAX package's
+    `RequestCoalescer`): concurrent /generate requests ride one dispatch
+    instead of each paying a whole padded batch.
+
+    Handler threads `submit(captions, lens)` and block; one dispatcher
+    thread takes the first queued request, keeps gathering until it has
+    `max_items` prompts (default the sampler's batch size) or `window_s`
+    has passed, runs `generate_tokens` once under the dispatch lock, and
+    hands each waiter its slice. A failed dispatch raises its exception in
+    every request of the batch. `dispatches` counts the batches run."""
+
+    _STOP = object()
+
+    def __init__(self, sampler: Sampler, lock, window_s: float,
+                 max_items: Optional[int] = None):
+        import queue
+        import threading
+
+        if window_s <= 0:
+            raise ValueError(f"window_s must be > 0, got {window_s}")
+        self._sampler = sampler
+        self._lock = lock
+        self._window = window_s
+        self._max = max_items or sampler.batch_size
+        self._q = queue.Queue()
+        self._stopped = False
+        self.dispatches = 0
+        self._thread = threading.Thread(target=self._run,
+                                        name="request-coalescer",
+                                        daemon=True)
+        self._thread.start()
+
+    def submit(self, captions: np.ndarray, lens: np.ndarray) -> np.ndarray:
+        import threading
+
+        if self._stopped:
+            raise RuntimeError("coalescer stopped (server shutting down)")
+        slot = {"done": threading.Event(), "images": None, "error": None,
+                "caps": captions, "lens": lens}
+        self._q.put(slot)
+        # a first dispatch builds the kernels; a dead dispatcher must
+        # still not hold the handler forever
+        if not slot["done"].wait(timeout=600):
+            raise RuntimeError("coalescer dispatch timed out")
+        if slot["error"] is not None:
+            raise slot["error"]
+        return slot["images"]
+
+    def _run(self):
+        import queue
+
+        while True:
+            slot = self._q.get()
+            if slot is self._STOP:
+                return
+            batch = [slot]
+            n = len(slot["caps"])
+            deadline = time.monotonic() + self._window
+            while n < self._max:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    nxt = self._q.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if nxt is self._STOP:
+                    self._q.put(self._STOP)  # the outer loop stops on it
+                    break
+                batch.append(nxt)
+                n += len(nxt["caps"])
+            try:
+                caps = np.concatenate([b["caps"] for b in batch])
+                lens = np.concatenate([b["lens"] for b in batch])
+                with self._lock:
+                    images = self._sampler.generate_tokens(caps, lens)
+                self.dispatches += 1
+                i = 0
+                for b in batch:
+                    b["images"] = images[i: i + len(b["caps"])]
+                    i += len(b["caps"])
+            except Exception as e:  # every waiter of the batch gets it
+                for b in batch:
+                    b["error"] = e
+            finally:
+                for b in batch:
+                    b["done"].set()
+
+    def stop(self, timeout: float = 30.0):
+        """Stop after the queued requests are dispatched; joins the
+        dispatcher. A later `submit` fails at once."""
+        self._stopped = True
+        self._q.put(self._STOP)
+        self._thread.join(timeout)
 
 
 def make_http_server(sampler: Sampler, host: str = "127.0.0.1",
@@ -275,27 +468,50 @@ def make_http_server(sampler: Sampler, host: str = "127.0.0.1",
                      max_body_bytes: int = 16 << 20,
                      max_inflight: int = 64,
                      epoch: Optional[int] = None,
-                     handler_timeout: Optional[float] = 120.0):
+                     reloader=None,
+                     watch_interval: Optional[float] = None,
+                     latest_epoch_fn=None,
+                     handler_timeout: Optional[float] = 120.0,
+                     coalesce_window: Optional[float] = None):
     """HTTP server around a resident `Sampler` (stdlib only, JSON).
 
       GET  /healthz   -> {"status": "ok", "batch_size", "image_size",
-                          "epoch"}
-      GET  /metrics   -> request/shed/error/image counters and generate
-                         latency sums
+                          "epoch", "pinned"}
+      GET  /metrics   -> request/shed/error/image/reload counters and
+                         generate latency sums (+ "coalesced_dispatches")
       POST /generate  <- {"prompts": ["a red bird", ...]}
                          or {"captions": [[ids...]], "cap_lens": [...]}
                          + optional "format": "png" (default) | "jpeg",
                            "quality": 1..100 (jpeg, default 95)
                       -> {"images": [<base64>, ...], "count": N,
                           "format": "png" | "jpeg"}
+      POST /reload    <- {} or {"epoch": N}: swap in the weights
+                         `reloader(epoch=None) -> (state_dict, epoch)`
+                         reads (`build_sampler`'s hook: the latest, or
+                         epoch N), without a restart
+                      -> {"status": "ok", "epoch", "pinned"}
 
-    Client errors answer 400. Dispatch is serialized through one lock (one
-    device); /generate requests beyond `max_inflight` are shed with a 503
-    instead of queueing. `handler_timeout` bounds every socket operation
-    of a handler, and so how long a stalled client can hold a thread.
-    Returns the bound `ThreadingHTTPServer` (port at
-    `.server_address[1]`); call `.serve_forever()` to serve, then
-    `.shutdown()` and `.server_close()`.
+    Client errors answer 400, a failed dispatch 500. /reload answers 400
+    without a reloader or on a bad body, 404 when the weights are not
+    there, 500 when the restore fails otherwise; it restores outside the
+    dispatch lock and swaps inside it, one reload at a time. An explicit
+    epoch pins it (the watcher leaves it be, as an operator's rollback);
+    a bare reload unpins.
+
+    `watch_interval` (seconds, CLI `--watch`) starts a watcher thread that
+    polls `latest_epoch_fn()` and swaps in a newer epoch unless pinned; a
+    failed reload keeps the current weights. `coalesce_window` (seconds,
+    CLI `--coalesce-ms`) gathers concurrent /generate requests into one
+    dispatch (`RequestCoalescer`).
+
+    Dispatch is serialized through one lock; /generate requests beyond
+    `max_inflight` are shed with a 503 instead of queueing, and the
+    listen backlog holds `max_inflight` connections arriving at once.
+    `handler_timeout` bounds every socket operation of a handler, and so
+    how long a stalled client can hold a thread. Returns the bound
+    `ThreadingHTTPServer` (port at `.server_address[1]`); call
+    `.serve_forever()` to serve, then `.shutdown()` and `.server_close()`,
+    which stops the coalescer and the watcher and joins the handlers.
     """
     import base64
     import io
@@ -308,17 +524,39 @@ def make_http_server(sampler: Sampler, host: str = "127.0.0.1",
 
     if max_inflight < 1:
         raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
+    if watch_interval is not None:
+        if reloader is None or latest_epoch_fn is None:
+            raise ValueError("watch_interval needs both reloader and "
+                             "latest_epoch_fn (build_sampler provides them)")
+        if watch_interval <= 0:
+            raise ValueError(
+                f"watch_interval must be > 0, got {watch_interval}")
     lock = threading.Lock()
     inflight = threading.BoundedSemaphore(max_inflight)
+    reload_lock = threading.Lock()  # one restore at a time
     stats_lock = threading.Lock()
     stats = {"requests_total": 0, "generate_ok": 0, "generate_error": 0,
-             "shed_total": 0, "images_total": 0,
+             "shed_total": 0, "images_total": 0, "reloads_total": 0,
              "generate_seconds_total": 0.0, "last_generate_seconds": 0.0}
+    state = {"epoch": epoch, "pinned": False}
+    coalescer = (RequestCoalescer(sampler, lock, coalesce_window)
+                 if coalesce_window is not None else None)
 
     def bump(**deltas):
         with stats_lock:
             for k, v in deltas.items():
                 stats[k] += v
+
+    def do_reload(want: Optional[int] = None) -> int:
+        """The reload of POST /reload and the watcher: the restore outside
+        the dispatch lock, the swap inside it."""
+        with reload_lock:
+            params, ep = reloader(epoch=want)
+            with lock:
+                sampler.swap_generator_params(params)
+                state["epoch"] = ep
+        bump(reloads_total=1)
+        return ep
 
     def encode_images(images: np.ndarray, fmt: str, quality: int
                       ) -> List[str]:
@@ -355,12 +593,16 @@ def make_http_server(sampler: Sampler, host: str = "127.0.0.1",
                 return self._send(
                     200, {"status": "ok", "batch_size": sampler.batch_size,
                           "image_size": sampler.cfg.generator.image_size,
-                          "epoch": epoch})
+                          "epoch": state["epoch"],
+                          "pinned": state["pinned"]})
             if self.path == "/metrics":
                 with stats_lock:
                     snap = dict(stats)
-                snap.update(epoch=epoch, max_inflight=max_inflight,
+                snap.update(epoch=state["epoch"], pinned=state["pinned"],
+                            max_inflight=max_inflight,
                             batch_size=sampler.batch_size)
+                if coalescer is not None:
+                    snap["coalesced_dispatches"] = coalescer.dispatches
                 return self._send(200, snap)
             self._send(404, {"error": "unknown path"})
 
@@ -380,6 +622,8 @@ def make_http_server(sampler: Sampler, host: str = "127.0.0.1",
 
         def do_POST(self):
             bump(requests_total=1)
+            if self.path == "/reload":
+                return self._reload()
             if self.path != "/generate":
                 self._drain_body()
                 return self._send(404, {"error": "unknown path"})
@@ -392,6 +636,38 @@ def make_http_server(sampler: Sampler, host: str = "127.0.0.1",
                 self._generate()
             finally:
                 inflight.release()
+
+        def _reload(self):
+            if reloader is None:
+                self._drain_body()
+                return self._send(
+                    400, {"error": "reload not available: server was built "
+                          "without a weights-directory reloader"})
+            try:  # the client's mistakes
+                n = int(self.headers.get("Content-Length", 0))
+                if not 0 <= n <= max_body_bytes:
+                    self._drain_body()
+                    raise ValueError(
+                        f"Content-Length must be 0..{max_body_bytes}")
+                req = json.loads(self.rfile.read(n)) if n else {}
+                if not isinstance(req, dict):
+                    raise ValueError("request body must be a JSON object")
+                want = req.get("epoch")
+                if want is not None:
+                    want = int(want)
+            except (ValueError, TypeError) as e:
+                return self._send(400, {"error": str(e)})
+            try:  # the server's: weights missing or unreadable
+                ep = do_reload(want)
+                state["pinned"] = want is not None
+            except FileNotFoundError as e:
+                return self._send(404, {"error": str(e)})
+            except Exception as e:
+                traceback.print_exc()
+                return self._send(500,
+                                  {"error": f"{type(e).__name__}: {e}"})
+            self._send(200, {"status": "ok", "epoch": ep,
+                             "pinned": state["pinned"]})
 
         def _parse(self) -> Tuple[np.ndarray, np.ndarray, str, int]:
             n = int(self.headers.get("Content-Length", 0))
@@ -445,8 +721,11 @@ def make_http_server(sampler: Sampler, host: str = "127.0.0.1",
                 bump(generate_error=1)
                 return self._send(400, {"error": str(e)})
             try:
-                with lock:
-                    images = sampler.generate_tokens(caps, lens)
+                if coalescer is not None:
+                    images = coalescer.submit(caps, lens)
+                else:
+                    with lock:
+                        images = sampler.generate_tokens(caps, lens)
             except Exception as e:  # the server keeps serving; say why
                 traceback.print_exc()
                 bump(generate_error=1)
@@ -462,33 +741,75 @@ def make_http_server(sampler: Sampler, host: str = "127.0.0.1",
             self._send(200, {"images": encoded, "count": int(len(images)),
                              "format": fmt})
 
+    watcher_stop = threading.Event()
+
+    def watch_loop():
+        while not watcher_stop.wait(watch_interval):
+            try:
+                if state["pinned"]:  # held until a bare POST /reload
+                    continue
+                ep = latest_epoch_fn()
+                if ep is None or ep == state["epoch"]:
+                    continue
+                ep = do_reload()
+                print(f"[serve-http] watcher: now serving epoch-{ep} "
+                      "weights", file=sys.stderr, flush=True)
+            except Exception as e:  # the next poll retries
+                print(f"[serve-http] watcher: reload failed, keeping "
+                      f"epoch {state['epoch']}: {type(e).__name__}: {e}",
+                      file=sys.stderr, flush=True)
+
     class Server(ThreadingHTTPServer):
         # Non-daemon handler threads: server_close() joins in-flight
         # handlers instead of exit killing them mid-response.
         daemon_threads = False
+        _watcher_thread = None
+        # The listen backlog holds a burst of max_inflight connections
+        # (socketserver's default is 5): a connection beyond the backlog
+        # has its SYN dropped and the client retries only after a 1 s
+        # timeout, which set a 16-request burst's tail on the card.
+        request_queue_size = max(5, max_inflight)
 
-    return Server((host, port), Handler)
+        def server_close(self):
+            watcher_stop.set()
+            if coalescer is not None:
+                # before the handlers are joined: they may be waiting in
+                # submit(), and stop() dispatches what is queued
+                coalescer.stop()
+            super().server_close()
+            if self._watcher_thread is not None:
+                self._watcher_thread.join(timeout=30)
+
+    server = Server((host, port), Handler)
+    if watch_interval is not None:
+        server._watcher_thread = threading.Thread(
+            target=watch_loop, name="weight-watcher", daemon=True)
+        server._watcher_thread.start()
+    return server
 
 
 def main(data_dir: str, encoder_weights_path: str, gen_weights_dir: str,
          out_dir: str, prompts: Sequence[str],
          image_size: Optional[int] = None, batch_size: int = 8,
-         dtype: str = "float32", seed: int = 0,
-         device: str | torch.device = "cuda") -> List[str]:
+         use_ema: bool = False, dtype: str = "float32", seed: int = 0,
+         device: str | torch.device = "cuda",
+         data_parallel: bool = False) -> List[str]:
     """Batch prompt -> image serving: N prompts through one resident
     Sampler; writes one PNG per prompt plus a grid and returns the
-    per-prompt paths. Runs on CUDA unless `device="cpu"`."""
+    per-prompt paths. `use_ema` serves `gen_ema_N.pth`, `data_parallel`
+    every card of the process. Runs on CUDA unless `device="cpu"`."""
     from .utils import image_io
 
     sampler, epoch = build_sampler(
         data_dir, encoder_weights_path, gen_weights_dir,
-        image_size=image_size, batch_size=batch_size, dtype=dtype,
-        seed=seed, device=device)
+        image_size=image_size, batch_size=batch_size, use_ema=use_ema,
+        dtype=dtype, seed=seed, device=device, data_parallel=data_parallel)
     images = sampler.generate_prompts(list(prompts))
     paths = [image_io.save_image(img, out_dir, f"serve_{i:04d}")
              for i, img in enumerate(images)]
     image_io.save_image_grid(images, os.path.join(out_dir, "serve_grid.png"))
-    print(f"Served {len(paths)} prompts (gen_{epoch}.pth) -> {out_dir}")
+    print(f"Served {len(paths)} prompts ({_weights_name(epoch, use_ema)}) "
+          f"-> {out_dir}")
     return paths
 
 
@@ -498,7 +819,7 @@ def _cli(argv: Optional[Sequence[str]] = None) -> None:
     import threading
 
     ap = argparse.ArgumentParser(
-        description="prompt -> image serving on one CUDA card "
+        description="prompt -> image serving on CUDA cards "
                     "(batch CLI, or an HTTP server with --http)")
     ap.add_argument("--data", default="data",
                     help="dataset dir (vocab from captions.pickle)")
@@ -510,23 +831,50 @@ def _cli(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--image-size", type=int, default=None,
                     help="check the weights' size (default: from weights)")
     ap.add_argument("--batch-size", type=int, default=8)
+    ap.add_argument("--dp", action="store_true",
+                    help="serve data-parallel over all cards (one replica "
+                         "each, prompt batch split over them; the card "
+                         "count must divide batch-size)")
     ap.add_argument("--dtype", default="float32", choices=sorted(_DTYPES))
+    ap.add_argument("--ema", action="store_true",
+                    help="serve from the EMA generator (gen_ema_N.pth)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--prompts-file", default=None,
                     help="file with one prompt per line")
     ap.add_argument("--http", type=int, default=None, metavar="PORT",
                     help="run a resident HTTP server instead of the batch "
-                         "CLI: GET /healthz, GET /metrics, POST /generate")
+                         "CLI: GET /healthz, GET /metrics, POST /generate, "
+                         "POST /reload")
     ap.add_argument("--http-host", default="127.0.0.1",
                     help="bind address for --http (default loopback)")
     ap.add_argument("--max-inflight", type=int, default=64,
                     help="/generate requests beyond this are shed with 503")
+    ap.add_argument("--coalesce-ms", type=float, default=None,
+                    metavar="MS",
+                    help="with --http: dynamic request batching — gather "
+                         "concurrent /generate requests for up to this "
+                         "many milliseconds (or one full pipeline batch) "
+                         "and run them as ONE padded dispatch")
+    ap.add_argument("--watch", type=float, default=None, metavar="SECONDS",
+                    help="with --http: poll the weights dir at this "
+                         "interval and auto-serve newer gen_N epochs as "
+                         "the trainer writes them (hot swap, no restart)")
     ap.add_argument("--no-warmup", action="store_true",
                     help="skip the startup warmup batch")
     ap.add_argument("prompts", nargs="*", help="prompts on the command line")
     a = ap.parse_args(argv)
     if a.max_inflight < 1:
         ap.error(f"--max-inflight must be >= 1, got {a.max_inflight}")
+    if a.watch is not None:
+        if a.http is None:
+            ap.error("--watch requires --http")
+        if a.watch <= 0:
+            ap.error(f"--watch must be > 0 seconds, got {a.watch}")
+    if a.coalesce_ms is not None:
+        if a.http is None:
+            ap.error("--coalesce-ms requires --http")
+        if a.coalesce_ms <= 0:
+            ap.error(f"--coalesce-ms must be > 0, got {a.coalesce_ms}")
     if a.http is None:
         prompts = list(a.prompts)
         if a.prompts_file:
@@ -536,15 +884,22 @@ def _cli(argv: Optional[Sequence[str]] = None) -> None:
             ap.error("no prompts given (positional or --prompts-file)")
         main(a.data, a.text_encoder, a.weights, a.out, prompts,
              image_size=a.image_size, batch_size=a.batch_size,
-             dtype=a.dtype, seed=a.seed)
+             use_ema=a.ema, dtype=a.dtype, seed=a.seed,
+             data_parallel=a.dp)
         return
 
     sampler, epoch = build_sampler(
         a.data, a.text_encoder, a.weights, image_size=a.image_size,
-        batch_size=a.batch_size, dtype=a.dtype, seed=a.seed)
+        batch_size=a.batch_size, use_ema=a.ema, dtype=a.dtype, seed=a.seed,
+        data_parallel=a.dp)
     # bind before the warmup, so a port conflict fails fast
-    server = make_http_server(sampler, host=a.http_host, port=a.http,
-                              max_inflight=a.max_inflight, epoch=epoch)
+    server = make_http_server(
+        sampler, host=a.http_host, port=a.http, max_inflight=a.max_inflight,
+        epoch=epoch, reloader=sampler.reload_generator,
+        watch_interval=a.watch,
+        latest_epoch_fn=sampler.latest_generator_epoch,
+        coalesce_window=(a.coalesce_ms / 1000.0
+                         if a.coalesce_ms is not None else None))
     stopping = threading.Event()
 
     def _stop(signum, _frame):
@@ -558,9 +913,10 @@ def _cli(argv: Optional[Sequence[str]] = None) -> None:
     if not a.no_warmup:
         print(f"Pipeline warm in {sampler.warmup():.1f}s", flush=True)
     if not stopping.is_set():
-        print(f"Serving gen_{epoch}.pth on "
+        print(f"Serving {_weights_name(epoch, a.ema)} on "
               f"http://{a.http_host}:{server.server_address[1]} "
-              f"(batch {a.batch_size}, {a.dtype}, {sampler.device})",
+              f"(batch {a.batch_size}, {a.dtype}, "
+              f"{', '.join(str(d) for d, _, _ in sampler.replicas)})",
               flush=True)
     server.serve_forever()
     server.server_close()

@@ -118,13 +118,19 @@ def state_to_dict(state: TrainState) -> Dict[str, Any]:
 
 
 def load_state_dict(state: TrainState, blob: Dict[str, Any]) -> None:
-    """Load a `state_to_dict` dict into `state`, in place."""
+    """Load a `state_to_dict` dict into `state`, in place. An int "rng" is
+    a seed (what the importers of `models/torch_import.py` write, whose
+    stream could not be carried): the step's generator restarts from it
+    on whichever device resumes the run."""
     state.generator.load_state_dict(blob["generator"])
     state.discriminator.load_state_dict(blob["discriminator"])
     state.g_ema.load_state_dict(blob["g_ema"])
     state.g_opt.adam.load_state_dict(blob["g_opt"])
     state.d_opt.adam.load_state_dict(blob["d_opt"])
-    state.rng.set_state(blob["rng"].cpu())
+    if isinstance(blob["rng"], int):
+        state.rng.manual_seed(blob["rng"])
+    else:
+        state.rng.set_state(blob["rng"].cpu())
     state.step = int(blob["step"])
 
 
@@ -156,32 +162,37 @@ class CheckpointManager:
              histories: Dict[str, List[float]],
              config: Any = None) -> None:
         if self.primary:
-            blob = state_to_dict(state)
-            self._save("checkpoint", blob)
-            if (epoch + 1) % self.numbered_every == 0:
-                self._save(f"checkpoint_epoch_{epoch}", blob)
-            self.save_generator(epoch, state)
-            # histories.json is the resume commit point (it names the
-            # epoch restore() returns), so it lands only after the state
-            # files are complete: a crash before it leaves the previous
-            # epoch's histories and resume replays the epoch (never skips
-            # one).
-            self._write_json("histories.json", {"epoch": epoch, **histories})
-            if config is not None:
-                self.save_config(config)
+            self.write(epoch, state_to_dict(state), histories, config)
         barrier(self.mesh)
+
+    def write(self, epoch: int, blob: Dict[str, Any],
+              histories: Dict[str, List[float]], config: Any = None) -> None:
+        """The files of `save` from a `state_to_dict` dict, written by
+        this process alone (rank 0's part of `save`, and the importers')."""
+        self._save("checkpoint", blob)
+        if (epoch + 1) % self.numbered_every == 0:
+            self._save(f"checkpoint_epoch_{epoch}", blob)
+        self.save_generator(epoch, blob["generator"], blob["g_ema"])
+        # histories.json is the resume commit point (it names the epoch
+        # restore() returns), so it lands only after the state files are
+        # complete: a crash before it leaves the previous epoch's
+        # histories and resume replays the epoch (never skips one).
+        self._write_json("histories.json", {"epoch": epoch, **histories})
+        if config is not None:
+            self.save_config(config)
 
     def save_config(self, config: Any) -> None:
         """Persist the run's GANConfig as config.json (atomic write) so
         inference entry points can rebuild the exact model later."""
         self._write_json("config.json", dataclasses.asdict(config))
 
-    def save_generator(self, epoch: int, state: TrainState) -> None:
-        """Generator-only weights for inference (`model.py:321-327`):
-        `gen_{epoch}.pth` in the reference's state_dict format and
-        `gen_ema_{epoch}.pth`."""
-        self._save(f"gen_{epoch}.pth", state.generator.state_dict())
-        self._save(f"gen_ema_{epoch}.pth", state.g_ema.state_dict())
+    def save_generator(self, epoch: int, generator: Dict[str, Any],
+                       g_ema: Dict[str, Any]) -> None:
+        """Generator-only weights for inference (`model.py:321-327`): the
+        state_dicts `generator` as `gen_{epoch}.pth`, in the reference's
+        format, and `g_ema` as `gen_ema_{epoch}.pth`."""
+        self._save(f"gen_{epoch}.pth", generator)
+        self._save(f"gen_ema_{epoch}.pth", g_ema)
 
     def _write_json(self, name: str, obj: Any) -> None:
         """Atomic JSON write; non-finite floats (the FID inf sentinel) are

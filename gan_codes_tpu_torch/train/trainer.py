@@ -49,6 +49,7 @@ from ..parallel.mesh import Mesh
 from ..utils import image_io
 from ..utils.device import serving_device
 from ..utils.profiling import MetricsLogger, StepTimer
+from ..utils.seeding import fold_seed
 from .checkpoint import CheckpointManager, empty_histories
 from .state import TrainState, create_train_state
 from .step import make_train_step
@@ -117,9 +118,8 @@ class Trainer:
     def _epoch_generator(self, epoch: int) -> torch.Generator:
         """The eval noise generator of an epoch, seeded from (seed + 1,
         epoch) only (the JAX trainer's `fold_in(eval_base, epoch)`)."""
-        seed = int(np.random.SeedSequence([self._eval_seed, epoch])
-                   .generate_state(1, np.uint64)[0] >> np.uint64(1))
-        return torch.Generator(device=self.device).manual_seed(seed)
+        return torch.Generator(device=self.device).manual_seed(
+            fold_seed(self._eval_seed, epoch))
 
     def _device_batch(self, batch) -> Tuple[torch.Tensor, ...]:
         """Images and captions to the device (pinned, non-blocking on a

@@ -29,8 +29,10 @@ repeats bit for bit on the card and a resumed run equals its
 uninterrupted twin (the default algorithms add in an order that varies
 from run to run, which a few Adam steps can grow from the last bit into
 percents of a loss); the step is slower for it (`PERF.md` §5).
-`--mesh-layout` and `--mesh-slices` are parsed and ignored: NCCL picks its
-own rings. Not ported: the JAX package's other TPU dispatch knobs, which
+`--mesh-layout` and `--mesh-slices` take only their defaults (`flat`, 0),
+so scripts written for the JAX CLI still parse; any other value is an
+error, since they shape the JAX package's TPU mesh and NCCL picks its own
+rings. Not ported: the JAX package's other TPU dispatch knobs, which
 are exact math and have no meaning here (`--steps-per-dispatch`,
 `--device-prefetch`, `--compile-cache`, `--xla-vmem-kib`, the lane and
 image padding).
@@ -222,12 +224,20 @@ def main(argv: Optional[Sequence[str]] = None):
                    help="cuDNN's deterministic algorithms: runs repeat bit "
                         "for bit on the card (a slower step)")
     p.add_argument("--mesh-layout", default="flat",
-                   choices=["flat", "hybrid"],
-                   help="the JAX package's TPU mesh layout; ignored (NCCL "
-                        "picks its own rings)")
+                   help="the JAX package's TPU mesh layout; only the "
+                        "default 'flat' (NCCL picks its own rings)")
     p.add_argument("--mesh-slices", type=int, default=0,
-                   help="the JAX package's virtual slice count; ignored")
+                   help="the JAX package's virtual slice count; only the "
+                        "default 0")
     a = p.parse_args(argv)
+    if a.mesh_layout != "flat":
+        p.error(f"--mesh-layout {a.mesh_layout}: the layout of the JAX "
+                "package's TPU mesh has no meaning here (NCCL picks its own "
+                "rings); only the default 'flat' is accepted")
+    if a.mesh_slices != 0:
+        p.error(f"--mesh-slices {a.mesh_slices}: the JAX package's TPU "
+                "slice count has no meaning here (NCCL picks its own "
+                "rings); only the default 0 is accepted")
     return train(a.data, a.text_encoder, a.images, a.weights, a.image_size,
                  a.batch_size, a.epochs, a.seed, a.inception, a.dtype,
                  damsm_weight=a.damsm_weight, gp_compute_dtype=a.gp_dtype,

@@ -20,3 +20,11 @@ def fix_seed(seed: int = DEFAULT_SEED,
     random.seed(seed)
     np.random.seed(seed)
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def fold_seed(seed: int, epoch: int) -> int:
+    """A torch seed derived from (seed, epoch) alone, the counterpart of
+    JAX's `fold_in(PRNGKey(seed), epoch)`: the trainer's per-epoch eval
+    noise, and the stream an imported run restarts from."""
+    return int(np.random.SeedSequence([seed, epoch])
+               .generate_state(1, np.uint64)[0] >> np.uint64(1))

@@ -13,6 +13,7 @@ import socket
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -209,6 +210,25 @@ class TestTrainEntryDP:
         for key in ("g_losses", "d_losses", "d_gp_losses", "txtimg_losses"):
             np.testing.assert_allclose(hist[1][key], hist[0][key],
                                        atol=1e-5, rtol=2e-4, err_msg=key)
+
+    def test_mesh_flags_take_only_their_defaults(self, cub, tmp_path,
+                                                 capsys):
+        """`--mesh-layout` / `--mesh-slices` shape the JAX package's TPU
+        mesh: any value but the default is an argparse error naming NCCL,
+        and the defaults still reach `train`."""
+        args = _args(cub[0], tmp_path / "w", tmp_path / "i", 1)
+        for extra in (["--mesh-layout", "hybrid"], ["--mesh-slices", "2"]):
+            with mock.patch.object(train_entry, "train") as train:
+                with pytest.raises(SystemExit) as e:
+                    train_entry.main(args + extra)
+            assert e.value.code == 2 and not train.called, extra
+            err = capsys.readouterr().err
+            assert extra[0] in err and "NCCL picks its own rings" in err
+        with mock.patch.object(train_entry, "train") as train:
+            train_entry.main(args + ["--mesh-layout", "flat",
+                                     "--mesh-slices", "0"])
+        assert train.call_count == 1
+        assert not os.path.exists(tmp_path / "w")
 
 
 class TestMomentReducedEval:
