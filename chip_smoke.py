@@ -160,7 +160,36 @@ Phases (any failed check raises, so the run exits non-zero):
    and 14 K1 bwd a step plus 14 K2 for the eval batch), `--export` writes
    its `gen_1.pth` back (equal to the weights dir's bit for bit) and
    `build_sampler` serves one request from the export over HTTP.
-9. Prints one {"kernels": [...]} line, the nvidia-smi line, and, last,
+9. The rest of the port, at full width (the 256px generator, n_channels
+   32, every block gamma != 0). (a) `ops/blocks.py::res_block_g_up` at
+   the six up-blocks, batch 8, fp32 (TF32 off) and bf16: against
+   `res_block_g(upsample_nearest_2x(x))` on the card (cuDNN's conv_1
+   against K2's: fp32 allclose(2e-4, 2e-4), bf16 max|err| <= 2^-5 *
+   max|ref|) and against its plain versions (the same limits); its fp32
+   backward against the plain composition's autograd (<= 1e-3 of
+   max|ref| per input); launches exactly what the code launches (a
+   forward 1 K1 at low res and K2 for DFBlock-2 where `_supported` takes
+   it, else a second K1; a backward 2 K1 bwd); its time beside the
+   kernel-path block's (upsample, then `res_block_g`): the forward per
+   dtype as eager calls and as device time (GRAPH_CALLS calls in one CUDA
+   graph), the fp32 forward + backward as eager calls (CUDA events). (b)
+   `ops/nn.py::conv3x3_on_upsampled` at the six conv_1 shapes, fp32,
+   against `conv2d(upsample_nearest_2x(x))`: allclose(1e-4, 1e-4), both
+   timed as in (a).
+   (c) `examples/train_example.py` at 256px, batch 24, on its synthetic
+   fixture of ENTRY_TRAIN + ENTRY_TEST images, 2 epochs (K2 and K1 bwd
+   on 14 DFBlocks a step, K2 14 an eval batch), then `eval_example.py` on
+   its weights dir (14 K2 a sampled batch: the test batch and the
+   caption's); the PNGs exist at 256px. (d) `tools/validate_pretrained.py
+   --self-test` (its assets under this run's directory) and
+   `--check-weights` on (c)'s weights dir (14 K2), both exit 0; their
+   [PASS] lines carry the deltas. (e) `tools/longrun.py` at 256px, batch
+   24, on (c)'s fixture, LONGRUN_EPOCHS epochs with a SIGKILL after epoch
+   LONGRUN_KILL (train_entry in child processes, `--deterministic`, each
+   within LEG_TIMEOUT_S; their launches are not counted here): the
+   resumed run equals its twin bit for bit, its losses in band. Prints
+   the phase's seconds.
+10. Prints one {"kernels": [...]} line, the nvidia-smi line, and, last,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -2631,6 +2660,311 @@ def interop_phase(root: str):
     return counts, numbers
 
 
+UP_ITERS = 10                    # phase 9a/9b: timed calls of a block
+LONGRUN_EPOCHS, LONGRUN_KILL = 3, 1  # phase 9e: epochs, SIGKILL after
+LEG_TIMEOUT_S = 300              # phase 9e: each longrun leg's limit
+
+
+def up_blocks(gcfg):
+    """(index, h, Cin, Cout) of every block the JAX package's default path
+    runs as `res_block_g_up` (all but the first), h its low-res input."""
+    return [(i, gcfg.base_size * 2 ** (i - 1), cin, cout)
+            for i, (cin, cout) in enumerate(gcfg.block_channels) if i]
+
+
+def up_block_phase():
+    """Phase 9 (a) and (b). Returns ((K2, K1, K1 bwd) launches of the
+    counted `res_block_g_up` calls, numbers)."""
+    import copy
+
+    import torch
+
+    from gan_codes_tpu_torch.config import GeneratorConfig
+    from gan_codes_tpu_torch.ops import blocks
+    from gan_codes_tpu_torch.ops import nn as ops_nn
+    from gan_codes_tpu_torch.ops.kernels.fused_modconv import _supported
+
+    gcfg = GeneratorConfig()
+    g = _seeded_generator(SEED + 9).cuda()
+    stack = list(g.res_blocks) + [g.res_block_out]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    B = KERNEL_BATCH
+    k2, k1, k1b = _counters()
+    counted = [0, 0, 0]
+    numbers = {"up_block": {}, "subpixel": []}
+
+    def counted_call(fn, want, what):
+        k2.launches = k1.launches = k1b.launches = 0  # main path starts
+        out = fn()
+        got = (k2.launches, k1.launches, k1b.launches)  # main path ends
+        if got != want:
+            raise AssertionError(f"{what}: launches (K2, K1, K1 bwd) {got}, "
+                                 f"want {want}")
+        for j in range(3):
+            counted[j] += got[j]
+        return out
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+
+    # (a) res_block_g_up against res_block_g(upsample(x)) (cuDNN's conv_1
+    # against K2's), against its plain versions, its fp32 backward against
+    # the plain composition's autograd; its time beside the kernel path's
+    for dtype in (torch.float32, torch.bfloat16):
+        fp32 = dtype == torch.float32
+        name = "fp32" if fp32 else "bf16"
+        rows = numbers["up_block"][name] = []
+        sent = rand(B, gcfg.sentence_dim, dtype=dtype)
+        for i, h, cin, cout in up_blocks(gcfg):
+            block = copy.deepcopy(stack[i]).to(dtype)
+            x = rand(B, h, h, cin, dtype=dtype)
+            what = f"up-block {i} {name} x[{B},{h},{h},{cin}] -> {cout}"
+            # K1 runs DFBlock-1's chain at low res; DFBlock-2 is K2 where
+            # _supported takes conv_2, else K1 and a torch conv
+            k2_blk = int(_supported(block.conv_2.weight.permute(2, 3, 1, 0)))
+            fwd = (k2_blk, 2 - k2_blk, 0)
+
+            def up(xx=x, ss=sent, blk=block):
+                return blocks.res_block_g_up(blk, xx, ss)
+
+            def kernel_path(xx=x, ss=sent, blk=block):
+                return blocks.res_block_g(blk, ops_nn.upsample_nearest_2x(xx),
+                                          ss)
+
+            with torch.no_grad():
+                out = counted_call(up, fwd, what)
+                ref = kernel_path()
+                plain = _plain_or_kernels(True, up)
+            torch.cuda.synchronize()
+            err = _held(f"{what} vs res_block_g(upsample(x))", out, ref,
+                        fp32, 2e-4, -5)
+            err_plain = _held(f"{what} vs its plain versions", out, plain,
+                              fp32, 2e-4, -5)
+            with torch.no_grad():
+                up_ms = cuda_ms(up, UP_ITERS)
+                kp_ms = cuda_ms(kernel_path, UP_ITERS)
+                up_dev = graph_ms(up)
+                kp_dev = graph_ms(kernel_path)
+            row = {"h": h, "cin": cin, "cout": cout, "ms": up_ms,
+                   "kernel_path_ms": kp_ms, "device_ms": up_dev,
+                   "kernel_path_device_ms": kp_dev, "max_abs_err": err,
+                   "max_abs_err_plain": err_plain}
+            rows.append(row)
+            if fp32:
+                xg = x.detach().requires_grad_()
+                sg = sent.detach().requires_grad_()
+                leaves = [xg, sg] + list(block.parameters())
+                dy = rand(B, 2 * h, 2 * h, cout)
+                out = counted_call(lambda: up(xg, sg), fwd, what)
+                got = counted_call(
+                    lambda: torch.autograd.grad(out, leaves, dy), (0, 0, 2),
+                    f"{what} backward")
+                ref = _plain_or_kernels(True, lambda: kernel_path(xg, sg))
+                want = torch.autograd.grad(ref, leaves, dy)
+                worst = 0.0
+                for j, (a, b) in enumerate(zip(got, want)):
+                    e = (a - b).abs().max().item()
+                    t = b.abs().max().item()
+                    worst = max(worst, e / max(t, 1e-30))
+                    if e > 1e-3 * t:
+                        raise AssertionError(f"{what} backward input {j}: "
+                                             f"max|err| {e} max|ref| {t}")
+                row["bwd_worst_rel_err"] = worst
+                row["fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                    up(xg, sg), leaves, dy), UP_ITERS)
+                row["kernel_path_fwd_bwd_ms"] = cuda_ms(
+                    lambda: torch.autograd.grad(kernel_path(xg, sg), leaves,
+                                                dy), UP_ITERS)
+                del xg, sg, leaves, dy, out, got, ref, want
+            log(f"[rest] {what}: max_abs_err {err:.3g} vs the kernel path, "
+                f"{err_plain:.3g} vs plain | ms {up_ms:.4f} kernel_path_ms "
+                f"{kp_ms:.4f} (eager calls); device ms {up_dev:.4f} kernel "
+                f"path {kp_dev:.4f} (CUDA graph)" + (
+                    f" | fwd+bwd ms {row['fwd_bwd_ms']:.4f} kernel path "
+                    f"{row['kernel_path_fwd_bwd_ms']:.4f}, backward worst "
+                    f"max|err|/max|ref| {row['bwd_worst_rel_err']:.3g}"
+                    if fp32 else ""))
+        for key in ("ms", "kernel_path_ms", "device_ms",
+                    "kernel_path_device_ms"):
+            numbers[f"{key}_{name}"] = sum(r[key] for r in rows)
+    numbers["up_block_fwd_bwd_ms_fp32"] = sum(
+        r["fwd_bwd_ms"] for r in numbers["up_block"]["fp32"])
+    numbers["kernel_path_fwd_bwd_ms_fp32"] = sum(
+        r["kernel_path_fwd_bwd_ms"] for r in numbers["up_block"]["fp32"])
+
+    # (b) the sub-pixel conv at the six conv_1 shapes, fp32
+    for i, h, cin, cout in up_blocks(gcfg):
+        conv = stack[i].conv_1
+        x = rand(B, h, h, cin)
+
+        def folded(xx=x, c=conv):
+            return ops_nn.conv3x3_on_upsampled(xx, c.weight, c.bias)
+
+        def unfolded(xx=x, c=conv):
+            return ops_nn.conv2d(ops_nn.upsample_nearest_2x(xx), c.weight,
+                                 c.bias, padding=1)
+
+        with torch.no_grad():
+            got, want = folded(), unfolded()
+            if not torch.allclose(got, want, atol=1e-4, rtol=1e-4):
+                raise AssertionError(
+                    f"conv3x3_on_upsampled x[{B},{h},{h},{cin}] -> {cout}: "
+                    f"max|err| {(got - want).abs().max().item()}")
+            row = {"h": h, "cin": cin, "cout": cout,
+                   "max_abs_err": (got - want).abs().max().item(),
+                   "ms": cuda_ms(folded, UP_ITERS),
+                   "conv_of_upsampled_ms": cuda_ms(unfolded, UP_ITERS),
+                   "device_ms": graph_ms(folded),
+                   "conv_of_upsampled_device_ms": graph_ms(unfolded)}
+        numbers["subpixel"].append(row)
+        log(f"[rest] conv3x3_on_upsampled fp32 x[{B},{h},{h},{cin}] -> "
+            f"{cout}: max_abs_err {row['max_abs_err']:.3g} | ms "
+            f"{row['ms']:.4f} conv2d(upsample(x)) ms "
+            f"{row['conv_of_upsampled_ms']:.4f} (eager calls); device ms "
+            f"{row['device_ms']:.4f} against "
+            f"{row['conv_of_upsampled_device_ms']:.4f} (CUDA graph)")
+    for key in ("ms", "conv_of_upsampled_ms", "device_ms",
+                "conv_of_upsampled_device_ms"):
+        numbers[f"subpixel_{key}"] = sum(r[key] for r in numbers["subpixel"])
+    log(f"[rest] six up-blocks, batch {B}, eager calls (device, CUDA "
+        f"graph): res_block_g_up fp32 {numbers['ms_fp32']:.4f} "
+        f"({numbers['device_ms_fp32']:.4f}) ms against the kernel path's "
+        f"{numbers['kernel_path_ms_fp32']:.4f} "
+        f"({numbers['kernel_path_device_ms_fp32']:.4f}), fwd+bwd "
+        f"{numbers['up_block_fwd_bwd_ms_fp32']:.4f} against "
+        f"{numbers['kernel_path_fwd_bwd_ms_fp32']:.4f}; bf16 "
+        f"{numbers['ms_bf16']:.4f} ({numbers['device_ms_bf16']:.4f}) "
+        f"against {numbers['kernel_path_ms_bf16']:.4f} "
+        f"({numbers['kernel_path_device_ms_bf16']:.4f}); the sub-pixel conv "
+        f"{numbers['subpixel_ms']:.4f} "
+        f"({numbers['subpixel_device_ms']:.4f}) ms against "
+        f"conv2d(upsample(x)) {numbers['subpixel_conv_of_upsampled_ms']:.4f}"
+        f" ({numbers['subpixel_conv_of_upsampled_device_ms']:.4f}); counted "
+        f"launches (K2, K1, K1 bwd) {tuple(counted)}")
+    return tuple(counted), numbers
+
+
+def examples_tools_phase(root: str, k2_per_forward: int,
+                         k1_per_forward: int):
+    """Phase 9 (c), (d) and (e). Returns ({path: (K2, K1, K1 bwd)
+    launches}, numbers)."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    from PIL import Image
+
+    from gan_codes_tpu_torch.examples import eval_example, train_example
+    from gan_codes_tpu_torch.tools import longrun, validate_pretrained
+
+    k2, k1, k1b = _counters()
+    numbers, launches = {}, {}
+    per_fwd = (k2_per_forward, k1_per_forward, 0)
+
+    def times(n, counts=per_fwd):
+        return tuple(n * c for c in counts)
+
+    # (c) the train example at full width, then the eval example on it
+    work = os.path.join(root, "example")
+    t = time.perf_counter()
+    k2.launches = k1.launches = k1b.launches = 0  # main path starts here
+    train_example.main(work=work, device="cuda", image_size=256,
+                       batch_size=TRAIN_BATCH, n_train=ENTRY_TRAIN,
+                       n_test=ENTRY_TEST)
+    counts = (k2.launches, k1.launches, k1b.launches)  # main path ends here
+    numbers["train_example_s"] = time.perf_counter() - t
+    steps = 2 * (ENTRY_TRAIN // TRAIN_BATCH)
+    evals = 2 * (ENTRY_TEST // TRAIN_BATCH)
+    want = times(steps + evals)[:2] + (
+        (k2_per_forward + k1_per_forward) * steps,)
+    if counts != want:
+        raise AssertionError(f"train example: launches (K2, K1, K1 bwd) "
+                             f"{counts}, want {want}")
+    launches["train_example"] = counts
+    data, weights = (os.path.join(work, "data"),
+                     os.path.join(work, "gen_weights"))
+    out = os.path.join(root, "eval_out")
+    t = time.perf_counter()
+    k2.launches = k1.launches = k1b.launches = 0  # main path starts here
+    eval_example.main(["--data", data, "--weights", weights,
+                       "--image-size", "256", "--out", out])
+    counts = (k2.launches, k1.launches, k1b.launches)  # main path ends here
+    numbers["eval_example_s"] = time.perf_counter() - t
+    if counts != times(2):  # the test batch and the caption's
+        raise AssertionError(f"eval example: launches (K2, K1, K1 bwd) "
+                             f"{counts}, want {times(2)}")
+    launches["eval_example"] = counts
+    pngs = [os.path.join(out, "batch", f)
+            for f in sorted(os.listdir(os.path.join(out, "batch")))]
+    pngs += [os.path.join(out, "own_bird.png")] + [
+        os.path.join(work, "gen_images", f"fake_sample_epoch_{e}.png")
+        for e in (0, 1)]
+    shapes = [np.asarray(Image.open(p)).shape for p in pngs]
+    n_batch = min(8, ENTRY_TEST)  # the eval example's test batch
+    if len(pngs) != n_batch + 3 or any(sh[2] != 3 for sh in shapes) or any(
+            sh[:2] != (256, 256) for sh in shapes[:n_batch + 1]):
+        raise AssertionError(f"the examples' PNGs: {list(zip(pngs, shapes))}")
+    log(f"[rest] train example (256px, batch {TRAIN_BATCH}, "
+        f"{ENTRY_TRAIN} + {ENTRY_TEST} images, 2 epochs) "
+        f"{numbers['train_example_s']:.1f}s, launches "
+        f"{launches['train_example']}; eval example "
+        f"{numbers['eval_example_s']:.1f}s, launches "
+        f"{launches['eval_example']}; {len(pngs)} PNGs")
+
+    # (d) the validate tool: --self-test (its assets under root), then
+    # --check-weights on the example's weights dir
+    tee = _Tee(sys.stdout)
+    t = time.perf_counter()
+    with mock.patch.object(tempfile, "tempdir", root), \
+            contextlib.redirect_stdout(tee):
+        rc = validate_pretrained.main(["--self-test"])
+    numbers["validate_self_test_s"] = time.perf_counter() - t
+    if rc != 0:
+        raise AssertionError(f"validate_pretrained --self-test: exit {rc}")
+    t = time.perf_counter()
+    k2.launches = k1.launches = k1b.launches = 0  # main path starts here
+    with contextlib.redirect_stdout(tee):
+        rc = validate_pretrained.main(["--check-weights", weights])
+    counts = (k2.launches, k1.launches, k1b.launches)  # main path ends here
+    numbers["validate_check_weights_s"] = time.perf_counter() - t
+    if rc != 0 or counts != times(1):
+        raise AssertionError(f"validate_pretrained --check-weights: exit "
+                             f"{rc}, launches {counts} (want {times(1)})")
+    launches["validate_check_weights"] = counts
+    numbers["validate_checks"] = [line for line in
+                                  tee.buf.getvalue().splitlines()
+                                  if line.startswith("[")]
+
+    # (e) the long run: SIGKILL after epoch 1, resumed, against its twin
+    # (child processes: their launches are not counted here)
+    torch.cuda.empty_cache()  # the children share the card
+    lr_out = os.path.join(root, "longrun")
+    t = time.perf_counter()
+    rc = longrun.main(["--device", "cuda", "--image-size", "256",
+                       "--batch-size", str(TRAIN_BATCH),
+                       "--epochs", str(LONGRUN_EPOCHS),
+                       "--kill-after-epoch", str(LONGRUN_KILL),
+                       "--data", data, "--out", lr_out,
+                       "--leg-timeout", str(LEG_TIMEOUT_S)])
+    numbers["longrun_s"] = time.perf_counter() - t
+    with open(os.path.join(lr_out, "LONGRUN.json")) as f:
+        report = json.load(f)
+    if rc != 0 or not report["equivalent"]:
+        raise AssertionError(f"longrun: exit {rc}, report {report}")
+    numbers["longrun"] = {k: report[k] for k in (
+        "straight_wall_seconds", "epoch_seconds_first",
+        "epoch_seconds_steady_mean", "resume_print", "equivalent",
+        "loss_health")}
+    log(f"[rest] validate_pretrained --self-test "
+        f"{numbers['validate_self_test_s']:.1f}s and --check-weights "
+        f"{numbers['validate_check_weights_s']:.1f}s: exit 0; longrun "
+        f"(256px, batch {TRAIN_BATCH}, {LONGRUN_EPOCHS} epochs, SIGKILL "
+        f"after epoch {LONGRUN_KILL}) equivalent bit for bit in "
+        f"{numbers['longrun_s']:.1f}s")
+    return launches, numbers
+
+
 def main() -> int:
     import torch
 
@@ -2700,6 +3034,15 @@ def main() -> int:
         (i_k2, i_k1, i_k1b), interop_numbers = interop_phase(root)
     log("[interop] " + json.dumps(interop_numbers))
     log(f"[interop] phase took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    up_counts, up_numbers = up_block_phase()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR,
+                                     prefix="rest_") as root:
+        p9_counts, p9_numbers = examples_tools_phase(root, k2_n, k1_n)
+    p9_numbers.update(up_numbers)
+    p9_numbers["phase_s"] = time.perf_counter() - t0
+    log("[rest] " + json.dumps(p9_numbers))
+    log(f"[rest] phase took {p9_numbers['phase_s']:.1f}s")
     # launches on the main paths; K3 is on none (as in the JAX package),
     # so its only launches are the kernel checks', which do not count
     launches = {"fused_modconv3x3": {"serve": k2, "train": t_k2,
@@ -2723,6 +3066,12 @@ def main() -> int:
         launches["fused_modconv3x3"][path] = r_k2
         launches["fused_double_affine_leaky"][path] = r_k1
         launches["fused_double_affine_leaky_bwd"][path] = 0
+        launches["fused_resblock_g"][path] = 0
+    p9_counts["up_block"] = up_counts
+    for path, (r_k2, r_k1, r_k1b) in p9_counts.items():
+        launches["fused_modconv3x3"][path] = r_k2
+        launches["fused_double_affine_leaky"][path] = r_k1
+        launches["fused_double_affine_leaky_bwd"][path] = r_k1b
         launches["fused_resblock_g"][path] = 0
     kernels = []
     for name, s in summary.items():

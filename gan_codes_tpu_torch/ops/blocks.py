@@ -14,6 +14,12 @@ Each DFBlock dispatches as the JAX package's kernel path does
 autograd Functions, so gradients reach the affine MLPs, the conv weights
 (through the HWIO copy) and `gamma`.
 
+`res_block_g_up` is `res_block_g` after a nearest 2x upsample, in the
+order of the JAX package's default generator path (`fuse_upsample`,
+`blocks.py:121-173`): DFBlock-1's modulation chain and the 1x1 shortcut
+at low resolution. It takes the same `ResidualBlockG` and is on none of
+the port's model paths, which keep the JAX kernel path's order.
+
 `ResidualBlockD` holds the reference ResidualBlockD's parameters
 (`src/discriminator/residual_block.py:7-30`): `residual_conv.{0,2}` (4x4
 stride-2 and 3x3 convs, no bias, each followed by LeakyReLU), `scale_conv`
@@ -79,6 +85,32 @@ def res_block_g(block: ResidualBlockG, x: torch.Tensor,
         shortcut = ops_nn.conv2d(x, block.scale_conv.weight,
                                  block.scale_conv.bias)
     return shortcut + block.gamma.to(x.dtype) * h
+
+
+def res_block_g_up(block: ResidualBlockG, x_low: torch.Tensor,
+                   sentence_embed: torch.Tensor) -> torch.Tensor:
+    """== res_block_g(block, upsample_nearest_2x(x_low), sentence_embed),
+    up to the order of the conv sums; x_low [B, h, w, Cin] NHWC ->
+    [B, 2h, 2w, Cout].
+
+    Nearest upsampling commutes with every per-pixel op, so DFBlock-1's
+    modulation chain runs at low resolution (kernel K1, a quarter of the
+    pixels), then the map is upsampled for conv_1 (a torch conv); DFBlock-2
+    sees the high-resolution map as in `res_block_g` (K2 where
+    `_supported`); the 1x1 shortcut also runs at low resolution, then is
+    upsampled."""
+    h = fusion.double_affine_leaky(block.fusion_block_1, block.fusion_block_2,
+                                   x_low, sentence_embed)
+    h = ops_nn.conv2d(ops_nn.upsample_nearest_2x(h), block.conv_1.weight,
+                      block.conv_1.bias, padding=1)
+    h = _df_block(block.fusion_block_3, block.fusion_block_4, block.conv_2,
+                  h, sentence_embed)
+    shortcut = x_low
+    if block.scale_conv is not None:
+        shortcut = ops_nn.conv2d(x_low, block.scale_conv.weight,
+                                 block.scale_conv.bias)
+    shortcut = ops_nn.upsample_nearest_2x(shortcut)
+    return shortcut + block.gamma.to(x_low.dtype) * h
 
 
 class ResidualBlockD(nn.Module):

@@ -9,17 +9,64 @@ fed a float32 input computes in float32.
 A NHWC tensor permuted to NCHW is already channels-last in memory, so the
 torch conv takes it without a copy and returns a channels-last result,
 which permutes back to a contiguous NHWC tensor.
+
+The initializers draw PyTorch's default distributions (the JAX package's
+`torch_linear_init`, `xavier_normal_linear_init`, `torch_conv_init`) from
+an explicit `torch.Generator`, and return `{"weight", "bias"}` dicts in
+torch's layouts, which `load_state_dict` takes into an `nn.Linear` or
+`nn.Conv2d`. JAX's PRNG stream cannot be reproduced, so the draws are the
+same distributions, not the same numbers.
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional
+import math
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 NEG_SLOPE = 0.2
+Params = Dict[str, torch.Tensor]
+
+
+def _uniform(generator: torch.Generator, shape, bound: float,
+             dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype).uniform_(-bound, bound,
+                                                    generator=generator)
+
+
+def torch_linear_init(generator: torch.Generator, in_dim: int, out_dim: int,
+                      bias: bool = True, dtype=torch.float32) -> Params:
+    """nn.Linear's default init: weight [out, in] and bias [out], both
+    U(+-sqrt(1/in_dim)) (kaiming_uniform(a=sqrt(5)) for the weight)."""
+    bound = math.sqrt(1.0 / in_dim)
+    p = {"weight": _uniform(generator, (out_dim, in_dim), bound, dtype)}
+    if bias:
+        p["bias"] = _uniform(generator, (out_dim,), bound, dtype)
+    return p
+
+
+def xavier_normal_linear_init(generator: torch.Generator, in_dim: int,
+                              out_dim: int, dtype=torch.float32) -> Params:
+    """xavier_normal_ weight [out, in] and a zero bias (the reference
+    AffineBlock MLPs, `src/generator/fusion_block.py:22-31`)."""
+    std = math.sqrt(2.0 / (in_dim + out_dim))
+    w = torch.randn((out_dim, in_dim), generator=generator, dtype=dtype)
+    return {"weight": w * std, "bias": torch.zeros(out_dim, dtype=dtype)}
+
+
+def torch_conv_init(generator: torch.Generator, kh: int, kw: int,
+                    in_ch: int, out_ch: int, bias: bool = True,
+                    dtype=torch.float32) -> Params:
+    """nn.Conv2d's default init: weight OIHW [out, in, kh, kw] and bias
+    [out], both U(+-sqrt(1/fan_in)), fan_in = in_ch * kh * kw."""
+    bound = math.sqrt(1.0 / (in_ch * kh * kw))
+    p = {"weight": _uniform(generator, (out_ch, in_ch, kh, kw), bound, dtype)}
+    if bias:
+        p["bias"] = _uniform(generator, (out_ch,), bound, dtype)
+    return p
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,3 +151,55 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     n, h, w, c = x.shape
     return x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c).reshape(
         n, 2 * h, 2 * w, c)
+
+
+def conv3x3_on_upsampled(x: torch.Tensor, weight: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """== conv2d(upsample_nearest_2x(x), weight, bias, padding=1), up to
+    the order of the tap sums; x NHWC, weight OIHW [Cout, Cin, 3, 3].
+
+    A measured negative on the TPU, kept as a tested reference and on no
+    path (the JAX package's `conv3x3_on_upsampled`: 2.25x fewer MACs, yet
+    slower end to end there; `res_block_g_up` upsamples and runs the plain
+    conv instead).
+
+    Nearest upsampling duplicates pixels, so for each output sub-pixel
+    phase (per axis) the three taps of the 3x3 kernel fold onto two
+    original-pixel offsets: phase 0 reads offsets (-1, 0) with weights
+    (w0, w1 + w2), phase 1 reads (0, +1) with (w0 + w1, w2). Both axes
+    folded give one 2x2 stride-1 conv with 4 * Cout outputs (the four
+    phases) over x padded by one, then a sub-pixel interleave."""
+    w = weight.to(x.dtype)
+    cout = w.shape[0]
+    # fold the rows (kernel dim 2): r0 = phase 0, r1 = phase 1
+    r0 = torch.stack([w[:, :, 0], w[:, :, 1] + w[:, :, 2]], dim=2)
+    r1 = torch.stack([w[:, :, 0] + w[:, :, 1], w[:, :, 2]], dim=2)
+
+    def fold_cols(r):
+        return (torch.stack([r[..., 0], r[..., 1] + r[..., 2]], dim=-1),
+                torch.stack([r[..., 0] + r[..., 1], r[..., 2]], dim=-1))
+
+    k00, k01 = fold_cols(r0)
+    k10, k11 = fold_cols(r1)
+    wf = torch.cat([k00, k01, k10, k11], dim=0)        # [4*Cout, Cin, 2, 2]
+    z = conv2d(F.pad(x, (0, 0, 1, 1, 1, 1)), wf)       # [B, H+1, W+1, 4*Cout]
+    n, h1, w1, _ = z.shape
+    h, wd = h1 - 1, w1 - 1
+    phases = [z[:, py:py + h, px:px + wd, p * cout:(p + 1) * cout]
+              for p, (py, px) in enumerate([(0, 0), (0, 1), (1, 0), (1, 1)])]
+    y = torch.stack(phases, dim=-2).reshape(n, h, wd, 2, 2, cout)
+    y = y.permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h, 2 * wd, cout)
+    if bias is not None:
+        y = y + bias.to(x.dtype)
+    return y
+
+
+def global_mean_pool(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the spatial dims: NHWC -> NC."""
+    return x.mean(dim=(1, 2))
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1,
+                 eps: float = 1e-12) -> torch.Tensor:
+    """F.normalize semantics: x / max(||x||_2, eps) along `dim`."""
+    return F.normalize(x, p=2.0, dim=dim, eps=eps)
