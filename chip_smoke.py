@@ -77,7 +77,9 @@ Phases (any failed check raises, so the run exits non-zero):
    then in bfloat16; every metric must be finite. Prints train img/s over
    two windows of at least TRAIN_WINDOW_S seconds (CUDA events; in fp32
    two more between them on cuDNN's deterministic algorithms), the peak
-   device memory, the device time of a step by kernel group
+   device memory (the whole, and above what a garbage collection leaves
+   allocated before the state is made), the device time of a step by
+   kernel group
    (torch.profiler) and of each phase apart (CUDA events). From one fp32
    state, held against the same through the plain versions: the phase-3
    G gradients against one D; one whole step, D learning (its losses, its
@@ -189,7 +191,35 @@ Phases (any failed check raises, so the run exits non-zero):
    within LEG_TIMEOUT_S; their launches are not counted here): the
    resumed run equals its twin bit for bit, its losses in band. Prints
    the phase's seconds.
-10. Prints one {"kernels": [...]} line, the nvidia-smi line, and, last,
+10. The last trainer options, at full width (256px, n_channels 32). (a)
+   K2 at the 14 DFBlocks and K3 at the 7 blocks, batch 8, fp32, in one
+   TF32 pass (the process's precision "high") and in 3xTF32 ("highest")
+   on the same inputs: the one-pass call against its plain version of
+   that mode (both conv operands rounded to TF32; K2 allclose 1e-4, K3
+   2e-4, the 3xTF32 tolerances, as the products are exact) and a second
+   call bit for bit; each mode's drift from the float64 plain version
+   (one pass at least MODE_DRIFT_RATIO = 10 times 3xTF32's, which a
+   kernel that ignored its mode would not show), device ms and bound, and
+   cuDNN's F.conv2d with TF32 on. (b) The fp32
+   train step at batch 24 at "highest" and "high", in turns: img/s and
+   device ms by phase; one step's losses and G and phase-1 D gradients at
+   "high" against "highest" from one state (tolerances at TF32_STEP_TOL).
+   (c) The step with and without `remat_blocks` (`--remat-g`), fp32 batch
+   24, bf16 batch 24 and 128, from one state on deterministic cuDNN: the
+   gradients bit for bit, the launches (K2, K1, K1 bwd: 28, 0, 14 with
+   remat, 14, 0, 14 without), img/s and peak memory, the whole and above
+   the arm's start (each arm starts after a garbage collection). (d) `train_entry.train` at 256px, batch 24, on a
+   synthetic CUB fixture with `matmul_precision="high"`, `remat_g`,
+   `device_prefetch` and `deterministic`: run A 2 epochs, run B 1 and
+   resumed to 2 (equal to A bit for bit at epoch 2), run C as B's first
+   epoch with the uploads on the step's stream (equal to it bit for
+   bit), the launch
+   counters of each run, and the profiler over A's first epoch: the
+   batches' host-to-device copies on a stream that runs none of K2's
+   launches. (e) A NaN in a G weight, then in a D weight, under
+   `debug_nans`: each step raises FloatingPointError naming its phase (the
+   G forward, phase 1). Prints the phase's seconds.
+11. Prints one {"kernels": [...]} line, the nvidia-smi line, and, last,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -198,6 +228,7 @@ result.
 from __future__ import annotations
 
 import base64
+import gc
 import io
 import json
 import os
@@ -1410,17 +1441,22 @@ def profile_breakdown(sampler, captions, cap_lens, noise, n: int = 3):
     return out
 
 
-def _train_setup(dtype: str):
+def _train_setup(dtype: str, batch: int = TRAIN_BATCH, remat: bool = False,
+                 debug_nans: bool = False):
     """Seeded full-width train state (every block gamma of G and D away
-    from 0), the frozen text encoder, the step, and a seeded batch."""
+    from 0), the frozen text encoder, the step, and a seeded batch; G
+    recomputes its blocks in the backward with `remat`, and the step
+    fails fast on a NaN with `debug_nans`."""
     import torch
 
-    from gan_codes_tpu_torch.config import GANConfig, TrainConfig
+    from gan_codes_tpu_torch.config import (GANConfig, GeneratorConfig,
+                                            TrainConfig)
     from gan_codes_tpu_torch.models.text_encoder import RNNEncoder
     from gan_codes_tpu_torch.train.state import create_train_state
     from gan_codes_tpu_torch.train.step import make_train_step
 
-    cfg = GANConfig(train=TrainConfig(batch_size=TRAIN_BATCH,
+    cfg = GANConfig(generator=GeneratorConfig(remat_blocks=remat),
+                    train=TrainConfig(batch_size=batch,
                                       compute_dtype=dtype))
     state = create_train_state(cfg, SEED, device="cuda")
     gen = torch.Generator().manual_seed(SEED)
@@ -1437,7 +1473,7 @@ def _train_setup(dtype: str):
         te = RNNEncoder(cfg.text_encoder)
     te = te.cuda().eval().requires_grad_(False)
     dev = torch.Generator(device="cuda").manual_seed(SEED)
-    b, size = TRAIN_BATCH, cfg.generator.image_size
+    b, size = batch, cfg.generator.image_size
     images = torch.rand((b, size, size, 3), generator=dev,
                         device="cuda") * 2 - 1
     captions = torch.randint(1, cfg.text_encoder.vocab_size,
@@ -1445,8 +1481,8 @@ def _train_setup(dtype: str):
                              device="cuda")
     cap_lens = torch.randint(1, cfg.text_encoder.max_len + 1, (b,),
                              generator=gen)
-    return cfg, state, te, make_train_step(cfg), (images, captions,
-                                                   cap_lens)
+    return cfg, state, te, make_train_step(cfg, debug_nans=debug_nans), (
+        images, captions, cap_lens)
 
 
 def _counters():
@@ -1469,6 +1505,7 @@ def train():
     numbers = {}
     counts = None
     for dtype in ("float32", "bfloat16"):
+        base = _clean_start()
         cfg, state, te, step, batch = _train_setup(dtype)
         log(f"[train] {dtype}: 256px batch {TRAIN_BATCH}, G "
             f"{sum(p.numel() for p in state.generator.parameters())} and D "
@@ -1527,6 +1564,7 @@ def train():
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         numbers[f"img_per_s_{dtype}"] = windows[False]
         numbers[f"peak_gib_{dtype}"] = peak
+        numbers[f"peak_gib_{dtype}_above_start"] = peak - base
         det_text = ""
         if windows[True]:
             numbers[f"img_per_s_{dtype}_deterministic"] = windows[True]
@@ -1535,7 +1573,8 @@ def train():
         log(f"[train] {dtype} throughput, windows of {n} steps "
             f"({n * TRAIN_BATCH / min(windows[False]):.1f} s at most): "
             f"{', '.join(f'{v:.2f}' for v in windows[False])} img/s"
-            f"{det_text}; peak memory {peak:.2f} GiB")
+            f"{det_text}; peak memory {peak:.2f} GiB, {peak - base:.3f} "
+            f"above the {base:.3f} GiB allocated before the state")
         res = _profile(lambda: step(state, te, *batch), 2)
         if res is not None:
             out, top = res
@@ -2661,7 +2700,7 @@ def interop_phase(root: str):
 
 
 UP_ITERS = 10                    # phase 9a/9b: timed calls of a block
-LONGRUN_EPOCHS, LONGRUN_KILL = 3, 1  # phase 9e: epochs, SIGKILL after
+LONGRUN_EPOCHS, LONGRUN_KILL = 2, 1  # phase 9e: epochs, SIGKILL after
 LEG_TIMEOUT_S = 300              # phase 9e: each longrun leg's limit
 
 
@@ -2965,6 +3004,598 @@ def examples_tools_phase(root: str, k2_per_forward: int,
     return launches, numbers
 
 
+# phase 10: this slice's options at full width
+REMAT_ARMS = (("float32", TRAIN_BATCH), ("bfloat16", TRAIN_BATCH),
+              ("bfloat16", 128))   # 128: the largest bf16 batch of BENCH_r05
+OPT_WINDOW_STEPS = {24: 6, 128: 3}  # steps a throughput window, by batch
+# The step at "high" (one TF32 pass) against "highest" (fp32), from one
+# state: TF32 keeps 10 of fp32's 23 mantissa bits, so rounding both
+# operands moves a product by up to 2 x 2^-11 of its magnitude; a logit or
+# a gradient of the step passes about 40 convolutions (G's 29 and D's 10
+# on the longest path, forward or backward), each adding at most that
+# share of the magnitudes it sums: TF32_STEP_TOL = 40 x 2 x 2^-11 (3.9%).
+# Held: max|err| over all G and phase-1 D gradients within that share of
+# max|ref|; the hinge losses d_loss and g_loss, means of logits against
+# the margin 1 (g_loss a mean of logits near 0, whose own relative gap
+# cancellation inflates), within TF32_STEP_TOL x max(1, |ref|); d_gp_loss,
+# coef x mean(|grad|^6), 6 times the relative error of a norm that passes
+# D's 10 convolutions and their 10 input gradients, within rtol
+# TF32_GP_TOL = 6 x 20 x 2 x 2^-11 (11.7%).
+# phase 10 (a): one TF32 pass drifts from float64 at least this many
+# times as far as 3xTF32 at every shape (on an H100 80GB HBM3 at 700 W
+# the ratio is 260x to 950x)
+MODE_DRIFT_RATIO = 10
+TF32_STEP_TOL = 40 * 2 * 2.0 ** -11
+TF32_GP_TOL = 6 * 20 * 2 * 2.0 ** -11
+
+
+def _precision(p):
+    """Set the process's fp32 precision; returns the one it replaces."""
+    from gan_codes_tpu_torch.utils.device import set_matmul_precision
+
+    return set_matmul_precision(p)
+
+
+def check_one_pass(gcfg):
+    """Phase 10 (a): K2 at every DFBlock and K3 at every block of the
+    generator, batch 8, fp32, in one TF32 pass (precision "high") and in
+    3xTF32 ("highest") on the same inputs. Each one-pass call against its
+    plain version of that mode (both conv operands rounded to TF32, the
+    products exact: the 3xTF32 tolerances, K2 allclose 1e-4, K3 2e-4) and
+    a second call bit for bit; both modes' drift from the float64 plain
+    version (TF32's error at its size beside 3xTF32's; one pass at least
+    MODE_DRIFT_RATIO times 3xTF32's, so each mode ran), device ms and
+    bound (one pass: the flops once over the TF32 tensor cores, 3xTF32
+    three times), and cuDNN's F.conv2d with TF32 on (K2's conv; K3's
+    three convs). Returns {kernel name: extra keys for its entry}."""
+    import torch
+    import torch.nn.functional as F
+
+    from gan_codes_tpu_torch.ops.kernels import fused_affine, fused_modconv
+    from gan_codes_tpu_torch.ops.kernels import fused_resblock as fr
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    B = KERNEL_BATCH
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    def modes(call, want_one, ref64, iters, name):
+        """(one-pass out, its err, ms one, ms three, drift one, drift
+        three)."""
+        previous = _precision("highest")
+        try:
+            three = call()
+            ms3 = cuda_ms(call, iters)
+            _precision("high")
+            one, again = call(), call()
+            want = want_one()
+            ms1 = cuda_ms(call, iters)
+        finally:
+            _precision(previous)
+        torch.cuda.synchronize()
+        if not torch.equal(one, again):
+            raise AssertionError(f"{name} one pass: a second call differs")
+        top64 = ref64.abs().max().item()
+        d1 = (one.double() - ref64).abs().max().item() / top64
+        d3 = (three.double() - ref64).abs().max().item() / top64
+        # each mode ran the products it was asked for: one TF32 pass
+        # drifts from float64 by TF32's rounding (2^-11 an operand),
+        # 3xTF32 by fp32's, hundreds of times less; a kernel that ignored
+        # its mode argument gives d1 == d3
+        if not d1 > MODE_DRIFT_RATIO * d3:
+            raise AssertionError(f"{name}: drift from float64 one pass {d1}"
+                                 f", 3xTF32 {d3}: not {MODE_DRIFT_RATIO}x "
+                                 "apart, so a mode was not run")
+        return one, want, ms1, ms3, d1, d3
+
+    k2 = dict(one_pass_ms=0.0, one_pass_3xtf32_ms=0.0, one_pass_bound_ms=0.0,
+              one_pass_3xtf32_bound_ms=0.0, one_pass_library_ms=0.0,
+              one_pass_max_abs_err=0.0, one_pass_drift_vs_float64=0.0,
+              one_pass_3xtf32_drift_vs_float64=0.0)
+    for hw, cin, cout in dfblock_shapes(gcfg):
+        x = rand(B, hw, hw, cin)
+        g1, b1, g2, b2 = (rand(B, cin) for _ in range(4))
+        w = rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+        bias = rand(cout, scale=0.1)
+        args = (x, g1, b1, g2, b2, w, bias)
+        iters = 20 if hw >= 64 else 50
+        ref64 = fused_modconv.reference_modconv3x3(*(a.double() for a in args))
+        name = f"K2 x[{B},{hw},{hw},{cin}] -> {cout}"
+        one, want, ms1, ms3, d1, d3 = modes(
+            lambda: fused_modconv.fused_modconv3x3(*args),
+            lambda: fused_modconv.reference_modconv3x3(*args, tf32=True),
+            ref64, iters, name)
+        err = _held(f"{name} one pass", one, want, True, 1e-4, 0)
+        del ref64
+        h = fused_affine.reference_double_affine_leaky(*args[:5])
+        h_nchw = h.permute(0, 3, 1, 2)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        previous = _precision("high")
+        try:
+            lib = cuda_ms(lambda: F.conv2d(h_nchw, w_oihw, bias, padding=1),
+                          iters)
+        finally:
+            _precision(previous)
+        n_bytes = (x.numel() + 4 * B * cin + w.numel() + cout
+                   + B * hw * hw * cout) * 4
+        flops = 2.0 * B * hw * hw * 9 * cin * cout
+        b1_ms = bound(n_bytes, flops, H100_TF32_TENSOR_FLOPS)[0]
+        b3_ms = bound(n_bytes, 3 * flops, H100_TF32_TENSOR_FLOPS)[0]
+        log(f"[one-pass] {name}: one pass max_abs_err {err:.3g} against "
+            f"its plain version (tf32 operands), second call bit-equal | "
+            f"drift from float64: one pass {d1:.3g}, 3xTF32 {d3:.3g} | ms "
+            f"one pass {ms1:.4f} (bound {b1_ms:.4f}), 3xTF32 {ms3:.4f} "
+            f"(bound {b3_ms:.4f}), F.conv2d TF32 {lib:.4f}")
+        for key, v in (("one_pass_ms", ms1), ("one_pass_3xtf32_ms", ms3),
+                       ("one_pass_bound_ms", b1_ms),
+                       ("one_pass_3xtf32_bound_ms", b3_ms),
+                       ("one_pass_library_ms", lib)):
+            k2[key] += v
+        k2["one_pass_max_abs_err"] = max(k2["one_pass_max_abs_err"], err)
+        k2["one_pass_drift_vs_float64"] = max(
+            k2["one_pass_drift_vs_float64"], d1)
+        k2["one_pass_3xtf32_drift_vs_float64"] = max(
+            k2["one_pass_3xtf32_drift_vs_float64"], d3)
+
+    k3 = dict(one_pass_ms=0.0, one_pass_3xtf32_ms=0.0, one_pass_bound_ms=0.0,
+              one_pass_3xtf32_bound_ms=0.0, one_pass_convs_tf32_ms=0.0,
+              one_pass_max_abs_err=0.0, one_pass_drift_vs_float64=0.0,
+              one_pass_3xtf32_drift_vs_float64=0.0)
+    for hw, cin, cout in resblock_shapes(gcfg):
+        sc = cin != cout
+        args = ([rand(B, hw, hw, cin)] + [rand(B, cin, scale=0.5)
+                                          for _ in range(4)]
+                + [rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5),
+                   rand(cout, scale=0.1)]
+                + [rand(B, cout, scale=0.5) for _ in range(4)]
+                + [rand(3, 3, cout, cout, scale=(9 * cout) ** -0.5),
+                   rand(cout, scale=0.1), torch.full((1,), 0.7, device=dev)]
+                + ([rand(1, 1, cin, cout, scale=cin ** -0.5),
+                    rand(cout, scale=0.1)] if sc else [None, None]))
+        iters = 5 if hw >= 128 else 10
+        ref64 = fr.reference_resblock_g(*(None if a is None else a.double()
+                                          for a in args))
+        name = f"K3 x[{B},{hw},{hw},{cin}] -> {cout}{' +1x1' if sc else ''}"
+        with torch.no_grad():
+            one, want, ms1, ms3, d1, d3 = modes(
+                lambda: fr.fused_resblock_g(*args),
+                lambda: fr.reference_resblock_g(*args, tf32=True),
+                ref64, iters, name)
+        err = _held(f"{name} one pass", one, want, True, 2e-4, 0)
+        del ref64
+        x_nchw = args[0].permute(0, 3, 1, 2)
+        h1_nchw = rand(B, cout, hw, hw)
+        w1o, w2o = (args[i].permute(3, 2, 0, 1).contiguous() for i in (5, 11))
+        wso = args[14].permute(3, 2, 0, 1).contiguous() if sc else None
+
+        def convs():
+            F.conv2d(x_nchw, w1o, args[6], padding=1)
+            F.conv2d(h1_nchw, w2o, args[12], padding=1)
+            if sc:
+                F.conv2d(x_nchw, wso, args[15])
+
+        previous = _precision("high")
+        try:
+            lib = cuda_ms(convs, iters)
+        finally:
+            _precision(previous)
+        n_bytes = (sum(a.numel() for a in args if a is not None)
+                   + B * hw * hw * cout) * 4
+        flops = 2.0 * B * hw * hw * cout * (9 * cin + 9 * cout
+                                            + (cin if sc else 0))
+        b1_ms = bound(n_bytes, flops, H100_TF32_TENSOR_FLOPS)[0]
+        b3_ms = bound(n_bytes, 3 * flops, H100_TF32_TENSOR_FLOPS)[0]
+        log(f"[one-pass] {name}: one pass max_abs_err {err:.3g} against "
+            f"its plain version (tf32 operands), second call bit-equal | "
+            f"drift from float64: one pass {d1:.3g}, 3xTF32 {d3:.3g} | ms "
+            f"one pass {ms1:.4f} (bound {b1_ms:.4f}), 3xTF32 {ms3:.4f} "
+            f"(bound {b3_ms:.4f}), its convs on F.conv2d TF32 {lib:.4f}")
+        for key, v in (("one_pass_ms", ms1), ("one_pass_3xtf32_ms", ms3),
+                       ("one_pass_bound_ms", b1_ms),
+                       ("one_pass_3xtf32_bound_ms", b3_ms),
+                       ("one_pass_convs_tf32_ms", lib)):
+            k3[key] += v
+        k3["one_pass_max_abs_err"] = max(k3["one_pass_max_abs_err"], err)
+        k3["one_pass_drift_vs_float64"] = max(
+            k3["one_pass_drift_vs_float64"], d1)
+        k3["one_pass_3xtf32_drift_vs_float64"] = max(
+            k3["one_pass_3xtf32_drift_vs_float64"], d3)
+    log(f"[one-pass] K2 per served forward (batch {B}): one pass "
+        f"{k2['one_pass_ms']:.4f} ms (bound {k2['one_pass_bound_ms']:.4f}), "
+        f"3xTF32 {k2['one_pass_3xtf32_ms']:.4f} (bound "
+        f"{k2['one_pass_3xtf32_bound_ms']:.4f}), F.conv2d TF32 "
+        f"{k2['one_pass_library_ms']:.4f}; K3 per 7-block set: one pass "
+        f"{k3['one_pass_ms']:.4f} (bound {k3['one_pass_bound_ms']:.4f}), "
+        f"3xTF32 {k3['one_pass_3xtf32_ms']:.4f} (bound "
+        f"{k3['one_pass_3xtf32_bound_ms']:.4f}), its convs on F.conv2d "
+        f"TF32 {k3['one_pass_convs_tf32_ms']:.4f}")
+    return {"fused_modconv3x3": k2, "fused_resblock_g": k3}
+
+
+def _window_img_s(step, state, te, batch, n: int) -> float:
+    """img/s over n steps (CUDA events) after one warm step."""
+    import torch
+
+    step(state, te, *batch)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        step(state, te, *batch)
+    end.record()
+    end.synchronize()
+    return n * batch[0].shape[0] / (start.elapsed_time(end) / 1e3)
+
+
+def _clean_start() -> float:
+    """GiB allocated on the card once every dropped object is collected.
+    A dropped train state outlives its last name until the cyclic
+    collector runs (torch's Adam sits in a reference cycle, and holds the
+    parameters, their gradients and its moments), and would weigh on the
+    next peak. Resets the peak statistics."""
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2 ** 30
+
+
+def _one_step(setup, noise):
+    """One step from a fresh `setup()` state with `noise`: its metrics, G's
+    gradients and the phase-1 D gradients, and its K2, K1 and K1 bwd
+    launches (the counters set to 0 just before the step, read just
+    after)."""
+    cfg, state, te, step, batch = setup()
+    k2, k1, k1b = _counters()
+    d_grads = []
+    d_step = state.d_opt.step
+
+    def record(grads):
+        grads = list(grads)
+        d_grads.append([g.detach().clone() for g in grads])
+        d_step(grads)
+
+    state.d_opt.step = record
+    k2.launches = k1.launches = k1b.launches = 0  # main path
+    m = step(state, te, *batch, noise=noise)
+    launches = (k2.launches, k1.launches, k1b.launches)  # ends here
+    state.d_opt.step = d_step
+    # on the host, so that they weigh on no later peak of the card
+    d_names = [n for n, _ in state.discriminator.named_parameters()]
+    grads = {"G." + n: p.grad.detach().cpu()
+             for n, p in state.generator.named_parameters()}
+    grads.update(("D." + n, g.cpu()) for n, g in zip(d_names, d_grads[0]))
+    return ({k: v.item() for k, v in m.items()}, grads, launches,
+            (cfg, state, te, step, batch))
+
+
+def options_steps():
+    """Phase 10 (b), (c), (e): the fp32 step at precision "highest" and
+    "high", in turns; the step with and without `remat_blocks` in fp32
+    and bf16 (batch 24, bf16 also 128); a NaN in G or D under
+    `debug_nans`. Returns ((K2, K1, K1 bwd) launches of the counted
+    steps, numbers)."""
+    import torch
+
+    numbers = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    noise24 = torch.randn((TRAIN_BATCH, 100), generator=gen, device="cuda")
+
+    # (b) precision: img/s in turns, phase times, one step's losses and
+    # gradients at "high" against "highest" from one state
+    img_s = {"highest": [], "high": []}
+    phase_ms = {}
+    cfg, state, te, step, batch = _train_setup("float32")
+    previous = _precision(None)
+    try:
+        for p in ("highest", "high", "high", "highest"):
+            _precision(p)
+            img_s[p].append(_window_img_s(step, state, te, batch,
+                                          OPT_WINDOW_STEPS[TRAIN_BATCH]))
+        for p in ("highest", "high"):
+            _precision(p)
+            phase_ms[p] = _phase_times(state, te, *batch, noise24,
+                                       cfg.loss)
+        res = _profile(lambda: step(state, te, *batch), 2)  # at "high"
+        if res is not None:
+            numbers["profile_high"] = {"batch": TRAIN_BATCH, **res[0]}
+            log("[profile] fp32 train step at high " + json.dumps(
+                numbers["profile_high"]))
+            for name, ms in res[1]:
+                log(f"[profile] {ms:8.3f} ms/step  {name[:110]}")
+        del state, step
+        runs = {}
+        for p in ("highest", "high"):
+            _precision(p)
+            runs[p] = _one_step(lambda: _train_setup("float32"), noise24)[:2]
+    finally:
+        _precision(previous)
+    (m_hi, g_hi), (m_tf, g_tf) = runs["highest"], runs["high"]
+    loss_gaps = {k: abs(m_tf[k] - m_hi[k]) / abs(m_hi[k])
+                 for k in ("d_loss", "d_gp_loss", "g_loss")}
+    loss_held = {k: abs(m_tf[k] - m_hi[k]) / max(1.0, abs(m_hi[k]))
+                 for k in ("d_loss", "g_loss")}
+    loss_held["d_gp_loss"] = loss_gaps["d_gp_loss"] / TF32_GP_TOL \
+        * TF32_STEP_TOL
+    gap = _grad_gap(g_tf, g_hi)
+    log(f"[options] fp32 step img/s in turns: highest "
+        f"{img_s['highest']}, high (one TF32 pass) {img_s['high']}; "
+        f"device ms by phase: highest {json.dumps(phase_ms['highest'])}, "
+        f"high {json.dumps(phase_ms['high'])}")
+    log(f"[options] one fp32 step at high against highest: losses "
+        f"{json.dumps(m_tf)} vs {json.dumps(m_hi)} (relative gaps "
+        f"{json.dumps(loss_gaps)}; held: d_loss, g_loss gap / max(1, "
+        f"|ref|) <= {TF32_STEP_TOL:.3g}, d_gp_loss rtol {TF32_GP_TOL:.3g})"
+        f"; G and phase-1 D gradients: {_gap_text(gap)} (held <= "
+        f"{TF32_STEP_TOL:.3g})")
+    if any(v > TF32_STEP_TOL for v in loss_held.values()):
+        raise AssertionError(f"losses at high vs highest: {loss_gaps}")
+    if gap["max_err"] > TF32_STEP_TOL * gap["max_ref"]:
+        raise AssertionError(f"gradients at high vs highest: {gap}")
+    numbers["precision"] = {"img_per_s": img_s, "phase_ms": phase_ms,
+                            "loss_rel_gaps": loss_gaps, "grads": gap}
+
+    # (c) remat: from one seeded state with and without, on deterministic
+    # cuDNN (the same algorithms each way): the step's gradients, bit for
+    # bit, its launches; then img/s and peak memory on the default
+    # algorithms, each arm from a clean start (`_clean_start`)
+    launches = [0, 0, 0]
+    for dtype, b in REMAT_ARMS:
+        noise = torch.randn((b, 100), generator=gen, device="cuda")
+        arms = {}
+        for remat in (False, True):
+            base = _clean_start()
+            torch.backends.cudnn.deterministic = True
+            try:
+                m, grads, counts, setup = _one_step(
+                    lambda: _train_setup(dtype, b, remat), noise)
+            finally:
+                torch.backends.cudnn.deterministic = False
+            want = (28, 0, 14) if remat else (14, 0, 14)
+            if counts != want:
+                raise AssertionError(f"{dtype} batch {b} remat {remat}: "
+                                     f"K2, K1, K1 bwd launches {counts} != "
+                                     f"{want}")
+            launches = [a + c for a, c in zip(launches, counts)]
+            _, state, te, step, batch = setup
+            del setup
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ips = _window_img_s(step, state, te, batch, OPT_WINDOW_STEPS[b])
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            arms[remat] = dict(metrics=m, grads=grads, launches=counts,
+                               img_per_s=ips, peak_gib=peak,
+                               start_gib=base, step_peak_gib=peak - base)
+            del state, step, batch
+        gap = _grad_gap(arms[True]["grads"], arms[False]["grads"])
+        same = all(torch.equal(arms[True]["grads"][n], g)
+                   for n, g in arms[False]["grads"].items())
+        key = f"{dtype}_{b}"
+        numbers[f"remat_{key}"] = {
+            "bit_equal": same, "grads": gap,
+            **{("remat" if r else "plain"): {
+                k: v for k, v in a.items() if k != "grads"}
+               for r, a in arms.items()}}
+        log(f"[options] {dtype} batch {b}, remat against plain: gradients "
+            f"{'bit-equal' if same else _gap_text(gap)}; launches K2, K1, "
+            f"K1 bwd {arms[True]['launches']} vs {arms[False]['launches']}; "
+            f"img/s {arms[True]['img_per_s']:.2f} vs "
+            f"{arms[False]['img_per_s']:.2f}; peak "
+            f"{arms[True]['peak_gib']:.3f} vs {arms[False]['peak_gib']:.3f} "
+            f"GiB, above the arm's start of {arms[True]['start_gib']:.3f} "
+            f"and {arms[False]['start_gib']:.3f} GiB "
+            f"{arms[True]['step_peak_gib']:.3f} vs "
+            f"{arms[False]['step_peak_gib']:.3f} (saves "
+            f"{arms[False]['step_peak_gib'] - arms[True]['step_peak_gib']:.3f})")
+        if not same:
+            # one state, the same noise, deterministic cuDNN, and K2 adds
+            # in a fixed order: the recompute gives the first pass's bits
+            raise AssertionError(f"remat gradients {key} differ from the "
+                                 f"step's without remat: {gap}")
+        del arms
+
+    # (e) a NaN in a G weight, then in a D weight, under debug_nans
+    raised = {}
+    for where, phase in (("G", "G forward"), ("D", "phase 1 (D hinge)")):
+        _, state, te, step, batch = _train_setup("float32", debug_nans=True)
+        w = state.generator.res_blocks[0].conv_1.weight if where == "G" \
+            else state.discriminator.img_forward[0].weight
+        with torch.no_grad():
+            w[0, 0, 0, 0] = float("nan")
+        try:
+            step(state, te, *batch)
+        except FloatingPointError as e:
+            raised[where] = str(e)
+            if phase not in str(e):
+                raise AssertionError(f"NaN in {where}: raised {e!r}, which "
+                                     f"does not name {phase!r}") from e
+        else:
+            raise AssertionError(f"NaN in a {where} weight under "
+                                 "debug_nans: the step did not raise")
+        del state, step
+    log(f"[options] debug_nans: {json.dumps(raised)}")
+    numbers["debug_nans"] = raised
+    return tuple(launches), numbers
+
+
+def options_entry_phase(root: str):
+    """Phase 10 (d): `train_entry.train` at 256px, batch 24, on a
+    synthetic CUB fixture, with precision "high", `remat_g`,
+    `device_prefetch` and `deterministic`: run A 2 epochs, run B 1 epoch
+    and resumed to 2 (equal to A bit for bit), run C as B's first epoch
+    with the uploads on the step's stream, no side stream (equal to it
+    bit for bit); the profiler over A's first epoch shows the batches'
+    host-to-device copies on a stream of their own. Returns ((K2, K1, K1 bwd) launches of the runs,
+    numbers)."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gan_codes_tpu_torch import train_entry
+    from gan_codes_tpu_torch.config import GANConfig
+    from gan_codes_tpu_torch.data.synthetic import make_synthetic_cub
+    from gan_codes_tpu_torch.models.text_encoder import RNNEncoder
+    from gan_codes_tpu_torch.train.checkpoint import state_to_dict
+    from gan_codes_tpu_torch.train.trainer import Trainer
+
+    data = os.path.join(root, "cub")
+    info = make_synthetic_cub(data, n_train=ENTRY_TRAIN, n_test=ENTRY_TEST,
+                              image_size=256, seed=SEED + 12)
+    cfg = GANConfig.for_image_size(256, vocab_size=info["n_words"])
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED + 12)
+        te = RNNEncoder(cfg.text_encoder)
+    te_path = os.path.join(root, "text_encoder.pth")
+    torch.save(te.state_dict(), te_path)
+    streams = {}
+
+    class Recorded(Trainer):
+        """The Trainer, keeping each instance, a snapshot of its state as
+        the first epoch starts (after any restore), and, where asked, the
+        device streams of its first epoch; with `one_stream` its uploads
+        run on the step's stream."""
+        made = []
+        profile_first = False
+        one_stream = False
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.at_start = None
+            if Recorded.one_stream:
+                self._copy_stream = None
+            Recorded.made.append(self)
+
+        def train_epoch(self, loader):
+            if self.at_start is None:
+                self.at_start = _snapshot(state_to_dict(self.state))
+                if Recorded.profile_first:
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        # the tracer running before the first upload: the
+                        # start of a window has lost its first events
+                        torch.cuda.synchronize()
+                        time.sleep(0.5)
+                        mark = torch.empty(1, device=self.device)
+                        for _ in range(64):
+                            mark.fill_(0.0)
+                        torch.cuda.synchronize()
+                        out = super().train_epoch(loader)
+                        torch.cuda.synchronize()
+                    for e in prof.events():
+                        if e.device_type == torch.autograd.DeviceType.CUDA:
+                            streams.setdefault(e.device_resource_id,
+                                               []).append(e.name)
+                    return out
+            return super().train_epoch(loader)
+
+    k2, k1, k1b = _counters()
+    steps_per_epoch = ENTRY_TRAIN // TRAIN_BATCH
+
+    def run(name: str, epochs: int, ran: int = 0):
+        """train_entry.train to `epochs`, `ran` of them in this call (all
+        unless given)."""
+        tee = _Tee(sys.stdout)
+        k2.launches = k1.launches = k1b.launches = 0  # main path starts
+        t = time.perf_counter()
+        with mock.patch.object(train_entry, "Trainer", Recorded), \
+                contextlib.redirect_stdout(tee):
+            hist = train_entry.train(
+                data, te_path, os.path.join(root, f"{name}_images"),
+                os.path.join(root, f"{name}_weights"), image_size=256,
+                batch_size=TRAIN_BATCH, num_epochs=epochs, seed=SEED,
+                device="cuda", deterministic=True, matmul_precision="high",
+                remat_g=True, device_prefetch=True)
+        wall = time.perf_counter() - t
+        counts = (k2.launches, k1.launches, k1b.launches)  # ends here
+        trainer = Recorded.made[-1]
+        ran = ran or epochs
+        steps = ran * steps_per_epoch
+        # remat: two K2 a K2 DFBlock a step (14 -> 28), K1 bwd 14; an eval
+        # batch a forward (14 K2)
+        want = (28 * steps + 14 * ran, 0, 14 * steps)
+        if counts != want:
+            raise AssertionError(f"run {name}: K2, K1, K1 bwd launches "
+                                 f"{counts} != {want}")
+        return hist, counts, wall, tee.buf.getvalue(), trainer
+
+    Recorded.profile_first = True
+    hist_a, counts_a, wall_a, _, tr_a = run("a", 2)
+    Recorded.profile_first = False
+    hist_b1, counts_b1, _, _, tr_b1 = run("b", 1)
+    saved_b = _snapshot(state_to_dict(tr_b1.state))
+    hist_b2, counts_b2, _, out_b2, tr_b2 = run("b", 2, ran=1)
+    Recorded.one_stream = True
+    hist_c, counts_c, wall_c, _, tr_c = run("c", 1)
+    Recorded.one_stream = False
+    saved_c = _snapshot(state_to_dict(tr_c.state))
+
+    if "Resuming from epoch 1" not in out_b2:
+        raise AssertionError("run B's second call did not resume")
+    n_tensors = _bit_equal(tr_b2.at_start, saved_b)
+    for key in ("g_losses", "d_losses", "d_gp_losses", "txtimg_losses"):
+        if hist_b2[key][1] != hist_a[key][1]:
+            raise AssertionError(f"epoch 2 {key}: run A {hist_a[key][1]}, "
+                                 f"resumed run B {hist_b2[key][1]}")
+        if not np.isfinite(hist_a[key][1]):
+            raise AssertionError(f"epoch 2 {key}: {hist_a[key][1]}")
+        if hist_c[key][0] != hist_b1[key][0]:
+            raise AssertionError(f"epoch 1 {key}: uploads on a side stream "
+                                 f"{hist_b1[key][0]}, on the step's "
+                                 f"{hist_c[key][0]}")
+    n_c = _bit_equal(saved_c, saved_b)
+    if not all(t._copy_stream is not None for t in (tr_a, tr_b1, tr_b2)) \
+            or tr_c._copy_stream is not None:
+        raise AssertionError("the uploads did not run on a side stream in "
+                             "runs A and B, or did in run C")
+    log(f"[options-entry] resumed B equals A at epoch 2 bit for bit "
+        f"(restored {n_tensors} tensors); C (uploads on the step's stream) "
+        f"equals B's first epoch bit for bit ({n_c} tensors); losses "
+        f"{json.dumps({k: v[1] for k, v in hist_a.items()})}")
+
+    # the batches' copies, two a batch (images, captions), on a stream that
+    # runs no kernel of the step; the step's own stream carries at most
+    # the step's one copy (the packed LSTM's batch sizes). On an H100 the
+    # profiler has recorded 4, 2 and 0 of the 4 copies of this window's
+    # two uploads, missing the step's own copies too, so one batch's two
+    # suffice.
+    step_streams = {s for s, names in streams.items()
+                    if any("fused_modconv3x3_kernel" in n for n in names)}
+    copies = {s: sum(n.startswith("Memcpy HtoD") for n in names)
+              for s, names in streams.items()}
+    side = sum(c for s, c in copies.items() if s not in step_streams)
+    on_step = sum(c for s, c in copies.items() if s in step_streams)
+    log(f"[options-entry] profiler over run A's first epoch: streams "
+        f"{sorted(streams)}, K2's {sorted(step_streams)}, host-to-device "
+        f"copies by stream {copies}")
+    for s, names in sorted(streams.items()):
+        counts = {}
+        for n in names:
+            counts[n[:60]] = counts.get(n[:60], 0) + 1
+        top = sorted(counts.items(), key=lambda kv: -kv[1])[:6]
+        log(f"[options-entry] stream {s}: {len(names)} events, {top}")
+    if not streams:
+        raise AssertionError("the profiler recorded no device event")
+    if not step_streams or side < 2 or on_step > steps_per_epoch:
+        raise AssertionError(f"{side} host-to-device copies off the step's "
+                             f"stream(s) {step_streams} (want at least 2), "
+                             f"{on_step} on them (want at most "
+                             f"{steps_per_epoch})")
+    numbers = {"a_wall_s": wall_a, "c_wall_s": wall_c,
+               "copies_by_stream": {str(k): v for k, v in copies.items()},
+               "step_streams": sorted(step_streams),
+               "h2d_device_ms_a": tr_a.timers["h2d"].total() * 1e3,
+               "step_device_ms_a": [t * 1e3 for t in
+                                    tr_a.timers["step"].times]}
+    totals = tuple(sum(c) for c in zip(counts_a, counts_b1, counts_b2,
+                                       counts_c))
+    return totals, numbers
+
+
 def main() -> int:
     import torch
 
@@ -3043,6 +3674,15 @@ def main() -> int:
     p9_numbers["phase_s"] = time.perf_counter() - t0
     log("[rest] " + json.dumps(p9_numbers))
     log(f"[rest] phase took {p9_numbers['phase_s']:.1f}s")
+    t0 = time.perf_counter()
+    one_pass = check_one_pass(GeneratorConfig())
+    o_counts, opt_numbers = options_steps()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR,
+                                     prefix="options_") as root:
+        oe_counts, opt_numbers["entry"] = options_entry_phase(root)
+    opt_numbers["phase_s"] = time.perf_counter() - t0
+    log("[options] " + json.dumps(opt_numbers))
+    log(f"[options] phase took {opt_numbers['phase_s']:.1f}s")
     # launches on the main paths; K3 is on none (as in the JAX package),
     # so its only launches are the kernel checks', which do not count
     launches = {"fused_modconv3x3": {"serve": k2, "train": t_k2,
@@ -3068,6 +3708,8 @@ def main() -> int:
         launches["fused_double_affine_leaky_bwd"][path] = 0
         launches["fused_resblock_g"][path] = 0
     p9_counts["up_block"] = up_counts
+    p9_counts["options_steps"] = o_counts
+    p9_counts["options_entry"] = oe_counts
     for path, (r_k2, r_k1, r_k1b) in p9_counts.items():
         launches["fused_modconv3x3"][path] = r_k2
         launches["fused_double_affine_leaky"][path] = r_k1
@@ -3087,6 +3729,7 @@ def main() -> int:
                  "shapes_per_call": s["path_shapes"]}
         if name == "fused_resblock_g":
             by_path["kernel_checks"] = k3_checks
+        entry.update(one_pass.get(name, {}))
         for extra in ("call_ms", "no_z_ms", "no_z_call_ms", "no_z_bound_ms",
                       "bwd_ms", "plain_bwd_ms", "ms_per_served_forward",
                       "bound_ms_fp32_cuda_cores", "drift_vs_float64",

@@ -6,13 +6,17 @@ properties as `gan_codes_tpu/config.py`, so `GANConfig.from_dict` reads the
 `dataclasses.asdict` gives the same dictionary.
 
 Some fields only steer the JAX package's TPU compilation: `use_pallas`,
-`fuse_upsample`, `remat_blocks`, `lane_pad`, `lane_pad_min_ch` and
-`image_pad` of the generator, `lane_pad`/`lane_pad_min_ch` of the
-discriminator, `xla_scoped_vmem_kib`, `image_pad`, `steps_per_dispatch` and
-`device_prefetch` of training. They are exact-math by the JAX package's own
-contract, so none of them changes a result; the port parses and keeps them
-so that a config round-trips, and its own path ignores them (it always
-runs its kernels on CUDA).
+`fuse_upsample`, `lane_pad`, `lane_pad_min_ch` and `image_pad` of the
+generator, `lane_pad`/`lane_pad_min_ch` of the discriminator,
+`xla_scoped_vmem_kib`, `image_pad` and `steps_per_dispatch` of training.
+They are exact-math by the JAX package's own contract, so none of them
+changes a result; the port parses and keeps them so that a config
+round-trips, and its own path ignores them (it always runs its kernels on
+CUDA). So does training's `device_prefetch`: the port's trainer always
+uploads the next batch while a step runs (`train/trainer.py`). One
+exact-math field does act here: the generator's `remat_blocks` recomputes
+each block in the backward (`models/generator.py`; less activation
+memory, a longer step).
 """
 from __future__ import annotations
 

@@ -18,7 +18,7 @@
 // (below) runs three TF32 products per product, so 3 x the flops over the
 // 495 TFLOP/s of the TF32 tensor cores (0.68 ms; over the 67 TFLOP/s of
 // the fp32 CUDA cores, the basis of the direct conv this file held
-// before, 1.68 ms).
+// before, 1.68 ms); one-pass TF32 a third of that (0.23 ms).
 //
 // Design, M = output pixels, N = Cout, K = 9 taps x Cin; a block computes
 // one 64 x N output tile over a range of K (the PTX wrappers, operand
@@ -27,8 +27,11 @@
 //     (32-256). bf16: m64nNk16.f32.bf16.bf16. fp32: 3xTF32, m64nNk8.f32.
 //     tf32.tf32 on split operands v = hi + lo, hi = cvt.rna.tf32(v), lo =
 //     cvt.rna.tf32(v - hi), three products a step (lo*hi + hi*lo + hi*hi):
-//     about 2^-22 relative, fp32's accuracy without TF32's rounding. The
-//     tensor cores' adder truncates, so in fp32 each K chunk is summed
+//     about 2^-22 relative, fp32's accuracy without TF32's rounding. With
+//     one_pass (the process's fp32 precision below "highest", chosen by
+//     the host wrapper at each launch: ONE) one product a step, hi*hi, on
+//     operands rounded to TF32 (2^-11 relative), and hi alone is stored
+//     and packed. The tensor cores' adder truncates, so in fp32 each K chunk is summed
 //     apart and added into a second set of registers on the CUDA cores;
 //     the N tile of fp32 stops at 128 to make room for it.
 //   * M spans a stacked image: the batch's samples one under another, one
@@ -119,7 +122,7 @@ __device__ __forceinline__ T epilogue(float acc, float bias) {
 
 // ---- the kernel ------------------------------------------------------------
 
-template <typename T, int NT>
+template <typename T, int NT, bool ONE>
 __global__ void __launch_bounds__(kThreads, NT == 8 ? 1 : 2)
 fused_modconv3x3_kernel(const T* __restrict__ x, const T* __restrict__ g1,
                         const T* __restrict__ b1, const T* __restrict__ g2,
@@ -244,8 +247,8 @@ fused_modconv3x3_kernel(const T* __restrict__ x, const T* __restrict__ g1,
       if (tid + j * kWG < C_ITEMS) {
         V16<T> mv[4];  // g1, b1, g2, b2: few rows, from L1
         load16<T, 4>(gb, item_s[j], chunk * CK + item_c(j), Cin, vec_ok, mv);
-        mod_store<T>(raw[j][0], mv, item_s[j], chunk * CK + item_c(j), Cin,
-                     a + item_dst(j), A_PART);
+        mod_store<T, ONE>(raw[j][0], mv, item_s[j], chunk * CK + item_c(j),
+                          Cin, a + item_dst(j), A_PART);
       }
     }
     fence_proxy_async();
@@ -294,6 +297,8 @@ fused_modconv3x3_kernel(const T* __restrict__ x, const T* __restrict__ g1,
         const uint64_t db = desc(b, 128, 256);
         if constexpr (PARTS == 1) {
           mma_bf16<NTILE>(acc, da, db);
+        } else if constexpr (ONE) {
+          mma_tf32<NTILE>(acc, da, db);
         } else {
           mma_tf32<NTILE>(acc, desc(a + A_PART, A_COL, HALO * 16), db);
           mma_tf32<NTILE>(acc, da, desc(b + PART_BYTES, 128, 256));
@@ -427,7 +432,8 @@ fused_modconv3x3_splitk_reduce_kernel(const float* __restrict__ ws,
 // element strides s0..s3, any layout: the HWIO view of a torch OIHW weight
 // needs no copy) -> the stages the kernels stream, [n tile][chunk][tap]
 // [k step][part][N / 8][2][8][KC / 2], zero past Cin and Cout; part = (w,)
-// in bf16, (hi, lo) = the tf32 split in fp32. One block per (n tile, chunk,
+// in bf16, (hi, lo) = the tf32 split in fp32 (one_pass: hi alone, the lo
+// plane left unwritten and unread). One block per (n tile, chunk,
 // tap, k step), its threads writing the step's N x KC elements of each part
 // in order.
 template <typename T>
@@ -435,7 +441,8 @@ __global__ void __launch_bounds__(256)
 fused_modconv3x3_pack_kernel(const T* __restrict__ w, long long s0,
                              long long s1, long long s2, long long s3,
                              int taps, int Cin, int Cout, int n_chunks,
-                             int ks, int ntile, T* __restrict__ packed) {
+                             int ks, int ntile, int one_pass,
+                             T* __restrict__ packed) {
   constexpr int KC = Op<T>::KC;
   constexpr int KT = KC / 2;
   constexpr int PARTS = Op<T>::PARTS;
@@ -464,12 +471,13 @@ fused_modconv3x3_pack_kernel(const T* __restrict__ w, long long s0,
     } else {
       const uint32_t hi = tf32_rna(v);
       dst[i] = __uint_as_float(hi);
-      dst[part + i] = __uint_as_float(tf32_rna(v - __uint_as_float(hi)));
+      if (!one_pass)
+        dst[part + i] = __uint_as_float(tf32_rna(v - __uint_as_float(hi)));
     }
   }
 }
 
-template <typename T, int NT>
+template <typename T, int NT, bool ONE>
 int launch(const void* x, const void* g1, const void* b1, const void* g2,
            const void* b2, const void* wpack, const void* bias, void* out,
            float* ws, int batch, int H, int W, int Cin, int Cout, int n_tiles,
@@ -493,7 +501,7 @@ int launch(const void* x, const void* g1, const void* b1, const void* g2,
     return (int)cudaErrorInvalidValue;
   const int n_chunks = (Cin + KS * Op<T>::KC - 1) / (KS * Op<T>::KC);
   const long long P = (long long)batch * H * W;
-  auto kernel = fused_modconv3x3_kernel<T, NT>;
+  auto kernel = fused_modconv3x3_kernel<T, NT, ONE>;
   // the shared-memory size is a constant of the instantiation: set it once
   // per device, not on every call
   static bool smem_set[64] = {};
@@ -525,22 +533,24 @@ int launch(const void* x, const void* g1, const void* b1, const void* g2,
 }
 
 template <typename T>
-int launch_nt(int nt, const void* x, const void* g1, const void* b1,
-              const void* g2, const void* b2, const void* wpack,
-              const void* bias, void* out, float* ws, int batch, int H, int W,
-              int Cin, int Cout, int n_tiles, int cps, int splits,
-              bool vec_ok, cudaStream_t s) {
-#define GCT_LAUNCH(N)                                                      \
-  case N:                                                                  \
-    return launch<T, N>(x, g1, b1, g2, b2, wpack, bias, out, ws, batch, H, \
-                        W, Cin, Cout, n_tiles, cps, splits, vec_ok, s);
-  switch (nt) {
-    GCT_LAUNCH(1)
-    GCT_LAUNCH(2)
-    GCT_LAUNCH(4)
-  }
+int launch_nt(int nt, bool one, const void* x, const void* g1,
+              const void* b1, const void* g2, const void* b2,
+              const void* wpack, const void* bias, void* out, float* ws,
+              int batch, int H, int W, int Cin, int Cout, int n_tiles,
+              int cps, int splits, bool vec_ok, cudaStream_t s) {
+#define GCT_LAUNCH(N, O)                                                  \
+  if (nt == N && one == O)                                                \
+    return launch<T, N, O>(x, g1, b1, g2, b2, wpack, bias, out, ws, batch, \
+                           H, W, Cin, Cout, n_tiles, cps, splits, vec_ok, s);
+  GCT_LAUNCH(1, false)
+  GCT_LAUNCH(2, false)
+  GCT_LAUNCH(4, false)
   if constexpr (Op<T>::PARTS == 1) {  // fp32 stops at N = 128 (sum above)
-    switch (nt) { GCT_LAUNCH(8) }
+    GCT_LAUNCH(8, false)
+  } else {  // one TF32 pass: fp32 only
+    GCT_LAUNCH(1, true)
+    GCT_LAUNCH(2, true)
+    GCT_LAUNCH(4, true)
   }
 #undef GCT_LAUNCH
   return (int)cudaErrorInvalidValue;
@@ -552,14 +562,14 @@ bool aligned16(const void* p) {
 
 template <typename T>
 int pack(const void* w, const long long* st, void* packed, int taps,
-         int Cin, int Cout, int nt, int ks, int n_tiles,
+         int Cin, int Cout, int nt, int ks, int n_tiles, int one_pass,
          cudaStream_t stream) {
   const int n_chunks = (Cin + ks * Op<T>::KC - 1) / (ks * Op<T>::KC);
   const long long steps = (long long)n_tiles * n_chunks * taps * ks;
   if (steps > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   fused_modconv3x3_pack_kernel<T><<<(unsigned)steps, 256, 0, stream>>>(
       static_cast<const T*>(w), st[0], st[1], st[2], st[3], taps, Cin, Cout,
-      n_chunks, ks, nt * 32, static_cast<T*>(packed));
+      n_chunks, ks, nt * 32, one_pass, static_cast<T*>(packed));
   return (int)cudaGetLastError();
 }
 
@@ -570,24 +580,25 @@ int pack(const void* w, const long long* st, void* packed, int taps,
 // w_strides[0..4) -> packed, the n_tiles N tiles of nt * 32 channels, the
 // Cin chunks of ks k steps of 16 (bf16) or 8 (fp32) channels and the taps
 // of the kernels' weight stages (ops/kernels/fused_modconv.py:
-// _pack_weights is its plain version). Returns cudaGetLastError().
+// _pack_weights is its plain version). one_pass (fp32; 0 or 1): the hi
+// plane alone, for one TF32 pass. Returns cudaGetLastError().
 extern "C" int gct_fused_modconv3x3_pack(const void* w,
                                          const long long* w_strides,
                                          void* packed, int taps, int Cin,
                                          int Cout, int nt, int ks,
                                          int n_tiles, int dtype,
-                                         void* stream) {
+                                         int one_pass, void* stream) {
   if (Cin <= 0 || Cout <= 0 || n_tiles <= 0 || (taps != 9 && taps != 1) ||
       (nt != 1 && nt != 2 && nt != 4 && nt != 8) || ks < 1 || ks > 4 ||
-      (long long)n_tiles * nt * 32 < Cout)
+      (long long)n_tiles * nt * 32 < Cout || (one_pass != 0 && one_pass != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return pack<float>(w, w_strides, packed, taps, Cin, Cout, nt, ks,
-                       n_tiles, s);
+                       n_tiles, one_pass, s);
   if (dtype == 1)
     return pack<__nv_bfloat16>(w, w_strides, packed, taps, Cin, Cout, nt,
-                               ks, n_tiles, s);
+                               ks, n_tiles, 0, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -597,17 +608,19 @@ extern "C" int gct_fused_modconv3x3_pack(const void* w,
 // split taking cps chunks. scratch is 16-byte aligned and holds the packed
 // weights (n_tiles x chunks x 9 x a chunk's channels x nt * 32 elements,
 // twice in fp32) rounded up to 256 bytes, then for splits > 1 the fp32
-// partial sums, splits x B*H*W x Cout. Returns cudaGetLastError() after
-// the launches (0 on success), or cudaErrorInvalidValue for a shape or
-// plan the kernel does not take.
+// partial sums, splits x B*H*W x Cout. one_pass (0 or 1; 1 only with
+// fp32): one TF32 product per product in place of 3xTF32. Returns
+// cudaGetLastError() after the launches (0 on success), or
+// cudaErrorInvalidValue for a shape or plan the kernel does not take.
 extern "C" int gct_fused_modconv3x3_fwd(
     const void* x, const void* g1, const void* b1, const void* g2,
     const void* b2, const void* w, const long long* w_strides,
     const void* bias, void* out, void* scratch, int batch, int H, int W,
     int Cin, int Cout, int nt, int n_tiles, int cps, int splits, int dtype,
-    void* stream) {
+    int one_pass, void* stream) {
   if (batch <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 ||
       Cout % 32 != 0 || (dtype == 0 && nt > 4) || n_tiles <= 0 ||
+      (one_pass != 0 && (one_pass != 1 || dtype != 0)) ||
       (long long)n_tiles * nt * 32 < Cout ||
       (long long)(n_tiles - 1) * nt * 32 >= Cout || cps <= 0 || splits <= 0)
     return (int)cudaErrorInvalidValue;
@@ -622,7 +635,8 @@ extern "C" int gct_fused_modconv3x3_fwd(
   const int ks = ks_of(dtype == 0 ? Op<float>::PARTS
                                   : Op<__nv_bfloat16>::PARTS, nt);
   int rc = gct_fused_modconv3x3_pack(w, w_strides, scratch, 9, Cin, Cout,
-                                     nt, ks, n_tiles, dtype, stream);
+                                     nt, ks, n_tiles, dtype, one_pass,
+                                     stream);
   if (rc != 0) return rc;
   // the packed weights: n_tiles x chunks x 9 taps x kc x nt * 32, x2 fp32
   const long long pack_bytes =
@@ -634,9 +648,10 @@ extern "C" int gct_fused_modconv3x3_fwd(
                       aligned16(b1) && aligned16(g2) && aligned16(b2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_nt<float>(nt, x, g1, b1, g2, b2, sc, bias, out, ws, batch,
-                            H, W, Cin, Cout, n_tiles, cps, splits, vec_ok, s);
-  return launch_nt<__nv_bfloat16>(nt, x, g1, b1, g2, b2, sc, bias, out, ws,
-                                  batch, H, W, Cin, Cout, n_tiles, cps,
-                                  splits, vec_ok, s);
+    return launch_nt<float>(nt, one_pass == 1, x, g1, b1, g2, b2, sc, bias,
+                            out, ws, batch, H, W, Cin, Cout, n_tiles, cps,
+                            splits, vec_ok, s);
+  return launch_nt<__nv_bfloat16>(nt, false, x, g1, b1, g2, b2, sc, bias,
+                                  out, ws, batch, H, W, Cin, Cout, n_tiles,
+                                  cps, splits, vec_ok, s);
 }

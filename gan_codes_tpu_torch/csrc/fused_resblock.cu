@@ -20,7 +20,8 @@
 // bytes of activations. bf16: those flops over the 989 TFLOP/s of the bf16
 // tensor cores (the 7 blocks of the 256px generator at batch 8: 119.08
 // GFLOP, 0.120 ms); fp32: 3xTF32 runs three TF32 products per product, so
-// 3 x the flops over 495 TFLOP/s (0.722 ms).
+// 3 x the flops over 495 TFLOP/s (0.722 ms); one-pass TF32 a third of that
+// (0.241 ms).
 //
 // Design. A block owns one output tile of TH x TW pixels of the stacked
 // image (the batch's samples one under another, one zero row between
@@ -78,7 +79,10 @@
 //     hi/lo splits, three products a step), each K chunk summed apart and
 //     added into a second register set on the CUDA cores (the tensor
 //     cores' adder truncates), so N stops at 128 and Cout 256 takes two N
-//     passes, each rebuilding its A chunks.
+//     passes, each rebuilding its A chunks. With one_pass (the process's
+//     fp32 precision below "highest", chosen by the host wrapper at each
+//     launch: ONE) one product a step, hi*hi, on operands rounded to TF32;
+//     the A builds and the packs store hi alone.
 //   * The 1x1 shortcut (Cin != Cout) is a one-tap GEMM over raw x on the
 //     h1 grid (tap offset P2 + 1), after conv2, into its own sums (a second
 //     accumulator set; the N tile stops at 128 in bf16 and 64 in fp32 to
@@ -103,7 +107,7 @@
 //
 // Numerics: every modulation op is rounded to T (common.cuh's mod_chain);
 // each conv multiplies T-valued operands (fp32: split into tf32 hi + lo,
-// about 2^-22 relative) and sums in fp32 in another order than cuDNN; conv
+// about 2^-22 relative; one pass: hi alone, 2^-11) and sums in fp32 in another order than cuDNN; conv
 // outputs are rounded to T before the bias add, gamma * h2 and the
 // residual sum are rounded to T, as the plain PyTorch version computes
 // them one op at a time.
@@ -121,7 +125,7 @@ extern "C" int gct_fused_modconv3x3_pack(const void* w,
                                          void* packed, int taps, int Cin,
                                          int Cout, int nt, int ks,
                                          int n_tiles, int dtype,
-                                         void* stream);
+                                         int one_pass, void* stream);
 
 namespace {
 
@@ -227,7 +231,7 @@ __device__ __forceinline__ void store8(T* dst, const float (&v)[8]) {
   }
 }
 
-template <typename T, int NT, bool SC>
+template <typename T, int NT, bool SC, bool ONE>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_resblock_g_kernel(const Args<T> a) {
   constexpr int KC = Op<T>::KC;
@@ -368,11 +372,11 @@ fused_resblock_g_kernel(const Args<T> a) {
         if (off[u] < 0) continue;
         unsigned char* d = dst0 + off[u];
         if constexpr (SRC == kShortcut)
-          raw_store<T>(raw[u][0], sm[u], cc[u], lim, d, A_PART);
+          raw_store<T, ONE>(raw[u][0], sm[u], cc[u], lim, d, A_PART);
         else if constexpr (PARTS == 1)
           mod_store_bf2(raw[u][0], mv[u], sm[u], cc[u], lim, d);
         else
-          mod_store<T>(raw[u][0], mv[u], sm[u], cc[u], lim, d, A_PART);
+          mod_store<T, ONE>(raw[u][0], mv[u], sm[u], cc[u], lim, d, A_PART);
       }
     }
     fence_proxy_async();
@@ -447,6 +451,8 @@ fused_resblock_g_kernel(const Args<T> a) {
             const uint64_t db = desc(bd, 128, 256);
             if constexpr (PARTS == 1) {
               mma_bf16<NTILE>(d, da, db);
+            } else if constexpr (ONE) {
+              mma_tf32<NTILE>(d, da, db);
             } else {
               mma_tf32<NTILE>(d, desc(ad + A_PART, A_COL, 128), db);
               mma_tf32<NTILE>(d, da, desc(bd + PART_BYTES, 128, 256));
@@ -597,7 +603,7 @@ struct Shape {
   int batch, H, W, Cin, Cout, th, tw, stages;
 };
 
-template <typename T, int NT, bool SC>
+template <typename T, int NT, bool SC, bool ONE>
 int launch(Args<T> a, const Shape& sh, cudaStream_t stream) {
   constexpr int CK = ks3_of(Op<T>::PARTS, NT) * Op<T>::KC;
   const long long rs = (long long)sh.batch * (sh.H + 1) - 1;
@@ -621,7 +627,7 @@ int launch(Args<T> a, const Shape& sh, cudaStream_t stream) {
       smem_bytes<T, NT>(sh.stages, a.apix, (sh.th + 2) * p2, a.ch2);
   if (tiles > 0x7fffffffLL || smem > kSmemLimit)
     return (int)cudaErrorInvalidValue;
-  auto kernel = fused_resblock_g_kernel<T, NT, SC>;
+  auto kernel = fused_resblock_g_kernel<T, NT, SC, ONE>;
   // the opt-in maximum, set once per device: any plan's smem fits under it
   static bool smem_set[64] = {};
   int dev = 0;
@@ -638,18 +644,24 @@ int launch(Args<T> a, const Shape& sh, cudaStream_t stream) {
 }
 
 template <typename T>
-int launch_nt(int nt, bool sc, const Args<T>& a, const Shape& sh,
+int launch_nt(int nt, bool sc, bool one, const Args<T>& a, const Shape& sh,
               cudaStream_t s) {
-#define GCT_LAUNCH(N, S) \
-  if (nt == N && sc == S) return launch<T, N, S>(a, sh, s);
-  GCT_LAUNCH(1, false)
-  GCT_LAUNCH(2, false)
-  GCT_LAUNCH(4, false)
-  GCT_LAUNCH(1, true)
-  GCT_LAUNCH(2, true)
+#define GCT_LAUNCH(N, S, O) \
+  if (nt == N && sc == S && one == O) return launch<T, N, S, O>(a, sh, s);
+  GCT_LAUNCH(1, false, false)
+  GCT_LAUNCH(2, false, false)
+  GCT_LAUNCH(4, false, false)
+  GCT_LAUNCH(1, true, false)
+  GCT_LAUNCH(2, true, false)
   if constexpr (Op<T>::PARTS == 1) {  // fp32: N <= 128, <= 64 with sc
-    GCT_LAUNCH(8, false)
-    GCT_LAUNCH(4, true)
+    GCT_LAUNCH(8, false, false)
+    GCT_LAUNCH(4, true, false)
+  } else {  // one TF32 pass: fp32 only
+    GCT_LAUNCH(1, false, true)
+    GCT_LAUNCH(2, false, true)
+    GCT_LAUNCH(4, false, true)
+    GCT_LAUNCH(1, true, true)
+    GCT_LAUNCH(2, true, true)
   }
 #undef GCT_LAUNCH
   return (int)cudaErrorInvalidValue;
@@ -667,8 +679,10 @@ bool aligned16(const void* p) {
 // _plan): N tiles of nt * 32 channels, output tiles of th x tw pixels of the
 // stacked image, a ring of `stages` weight stages. scratch is 16-byte
 // aligned and holds the packed w1, w2 and ws, each rounded up to 256 bytes
-// (Plan.scratch_bytes). Packs the weights (K2's pack kernel, three
-// launches), then launches the kernel once. Returns cudaGetLastError()
+// (Plan.scratch_bytes). one_pass (0 or 1; 1 only with fp32): one TF32
+// product per product in place of 3xTF32. Packs the weights (K2's pack
+// kernel, three launches), then launches the kernel once. Returns
+// cudaGetLastError()
 // after the launches (0 on success), or cudaErrorInvalidValue for a shape
 // or plan the kernel does not take.
 extern "C" int gct_fused_resblock_g_fwd(
@@ -679,11 +693,12 @@ extern "C" int gct_fused_resblock_g_fwd(
     const void* c2, const void* gamma, const void* ws,
     const long long* ws_strides, const void* cs, void* out, void* scratch,
     int batch, int H, int W, int Cin, int Cout, int nt, int th, int tw,
-    int stages, int dtype, void* stream) {
+    int stages, int dtype, int one_pass, void* stream) {
   if (batch <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 ||
       Cout % 32 != 0 || Cout > 256 || (nt != 1 && nt != 2 && nt != 4 &&
                                         nt != 8) ||
-      Cout % (nt * 32) != 0 || (dtype != 0 && dtype != 1))
+      Cout % (nt * 32) != 0 || (dtype != 0 && dtype != 1) ||
+      (one_pass != 0 && (one_pass != 1 || dtype != 0)))
     return (int)cudaErrorInvalidValue;
   const bool sc = ws != nullptr;
   if (sc != (cs != nullptr) || (!sc && Cin != Cout))
@@ -703,13 +718,13 @@ extern "C" int gct_fused_resblock_g_fwd(
   unsigned char* sc0 = static_cast<unsigned char*>(scratch);
   unsigned char *w1p = sc0, *w2p = sc0 + p1, *wsp = sc0 + p1 + p2;
   int rc = gct_fused_modconv3x3_pack(w1, w1_strides, w1p, 9, Cin, Cout, nt,
-                                     ks, n_tiles, dtype, stream);
+                                     ks, n_tiles, dtype, one_pass, stream);
   if (rc == 0)
     rc = gct_fused_modconv3x3_pack(w2, w2_strides, w2p, 9, Cout, Cout, nt,
-                                   ks, n_tiles, dtype, stream);
+                                   ks, n_tiles, dtype, one_pass, stream);
   if (rc == 0 && sc)
     rc = gct_fused_modconv3x3_pack(ws, ws_strides, wsp, 1, Cin, Cout, nt,
-                                   ks, n_tiles, dtype, stream);
+                                   ks, n_tiles, dtype, one_pass, stream);
   if (rc != 0) return rc;
   const int vec = dtype == 0 ? 4 : 8;
   const bool vec_ok = Cin % vec == 0 && aligned16(x) && aligned16(g1) &&
@@ -728,7 +743,7 @@ extern "C" int gct_fused_resblock_g_fwd(
     a.out = static_cast<T*>(out);
     a.H = H; a.W = W; a.Cin = Cin; a.Cout = Cout;
     a.vec_ok = vec_ok ? 1 : 0;
-    return launch_nt<T>(nt, sc, a, sh, s);
+    return launch_nt<T>(nt, sc, one_pass == 1, a, sh, s);
   };
   if (dtype == 0) return fill(Args<float>{});
   return fill(Args<__nv_bfloat16>{});

@@ -2,8 +2,9 @@
 // (fused_modconv.cu) and K3 (fused_resblock.cu), sm_90a: the operand
 // chunking (Op, ks_of), the PTX wrappers (mbarriers, cp.async.bulk, the
 // no-swizzle shared-memory descriptors, wgmma fence / commit / wait and the
-// m64nNk16 bf16 and m64nNk8 tf32 products), the tf32 hi/lo split, and the
-// loads and stores that build an A operand chunk from raw activations.
+// m64nNk16 bf16 and m64nNk8 tf32 products), the tf32 hi/lo split (hi alone
+// for one TF32 pass), and the loads and stores that build an A operand
+// chunk from raw activations.
 #pragma once
 
 #include <stdint.h>
@@ -292,8 +293,9 @@ __device__ __forceinline__ void load16(const T* const (&a)[N], long long row,
 
 // Modulate one 16-byte vector of the halo (x, and g1, b1, g2, b2 of its
 // sample s) and store it as the wgmma operand: T for bf16; tf32 hi and lo
-// planes, lo_off bytes apart, for fp32.
-template <typename T>
+// planes, lo_off bytes apart, for fp32 (HI_ONLY: the hi plane alone, the
+// operand of one TF32 pass).
+template <typename T, bool HI_ONLY = false>
 __device__ __forceinline__ void mod_store(const V16<T>& raw,
                                           const V16<T> (&m)[4], int s, int c,
                                           int Cin, unsigned char* dst,
@@ -319,10 +321,10 @@ __device__ __forceinline__ void mod_store(const V16<T>& raw,
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
       h[e] = tf32_rna(v[e]);
-      l[e] = tf32_rna(v[e] - __uint_as_float(h[e]));
+      if constexpr (!HI_ONLY) l[e] = tf32_rna(v[e] - __uint_as_float(h[e]));
     }
     *reinterpret_cast<uint4*>(dst) = hi;
-    *reinterpret_cast<uint4*>(dst + lo_off) = lo;
+    if constexpr (!HI_ONLY) *reinterpret_cast<uint4*>(dst + lo_off) = lo;
   }
 }
 
@@ -357,7 +359,7 @@ __device__ __forceinline__ void mod_store_bf2(
 // A raw 16-byte vector (0 for s < 0 and past Cin) stored as the wgmma
 // operand, as mod_store stores a modulated one: the A operand of a conv of
 // the unmodulated input (K3's 1x1 shortcut).
-template <typename T>
+template <typename T, bool HI_ONLY = false>
 __device__ __forceinline__ void raw_store(const V16<T>& raw, int s, int c,
                                           int Cin, unsigned char* dst,
                                           int lo_off) {
@@ -378,10 +380,10 @@ __device__ __forceinline__ void raw_store(const V16<T>& raw, int s, int c,
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
       h[e] = tf32_rna(v[e]);
-      l[e] = tf32_rna(v[e] - __uint_as_float(h[e]));
+      if constexpr (!HI_ONLY) l[e] = tf32_rna(v[e] - __uint_as_float(h[e]));
     }
     *reinterpret_cast<uint4*>(dst) = hi;
-    *reinterpret_cast<uint4*>(dst + lo_off) = lo;
+    if constexpr (!HI_ONLY) *reinterpret_cast<uint4*>(dst + lo_off) = lo;
   }
 }
 

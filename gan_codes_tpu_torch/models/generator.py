@@ -11,10 +11,20 @@ the reference's state_dict names (`linear_in`, `res_blocks.{i}`,
 The forward follows the JAX package's kernel path (`generator_apply` with
 `use_pallas=True`, `generator.py:83-104`): block 0, then upsample -> block
 for every later block, so each DFBlock runs through the CUDA kernels.
+
+`cfg.remat_blocks` (`--remat-g`; JAX: `jax.checkpoint` on each block,
+`generator.py:68-75`): where gradients are taken, each block keeps only
+its input and is recomputed in the backward (non-reentrant
+`torch.utils.checkpoint`, so `torch.autograd.grad` works through it), K2's
+forward and the affine MLPs running twice; the upsample stays outside, as
+in JAX. The gradients are the same: every recomputed op repeats its bits
+(K2 adds in a fixed order). Under `no_grad` (serving, eval, sampling) it
+changes nothing.
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..config import GeneratorConfig
@@ -50,10 +60,17 @@ class Generator(nn.Module):
         x = x.view(b, cfg.seed_channels, cfg.base_size, cfg.base_size)
         x = x.permute(0, 2, 3, 1).contiguous()
         blocks = list(self.res_blocks) + [self.res_block_out]
+        remat = cfg.remat_blocks and torch.is_grad_enabled()
         for i, block in enumerate(blocks):
             if i:
                 x = ops_nn.upsample_nearest_2x(x)
-            x = res_block_g(block, x, sentence_embed)
+            if remat:
+                # a block draws no random numbers: no RNG state to replay
+                x = torch.utils.checkpoint.checkpoint(
+                    res_block_g, block, x, sentence_embed,
+                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = res_block_g(block, x, sentence_embed)
         x = ops_nn.leaky_relu(x)
         conv = self.conv_out[1]
         x = ops_nn.conv2d(x, conv.weight, conv.bias, padding=1)

@@ -14,6 +14,10 @@ and needs no kernel of its own).
 The CUDA kernel is `csrc/fused_modconv.cu`, an implicit GEMM on the tensor
 cores (`wgmma`: bf16, and 3xTF32 for fp32) that modulates each halo chunk
 once in shared memory and streams the weights through a ring of stages.
+fp32 runs one TF32 product per product in place of three where the
+process's fp32 precision is below "highest" (`utils/device.py::
+one_pass_tf32`, read at each call and passed to the kernel);
+the plain version then rounds both operands to TF32 as the kernel does.
 Each forward first packs w, read at its own strides, into the order and
 core-matrix layout the kernel copies stage by stage, with the tf32 hi/lo
 split (`tf32_split`) for fp32: a pack kernel, whose plain version is
@@ -41,6 +45,7 @@ import torch.nn.functional as F
 from . import _build
 from . import fused_affine
 from .fused_affine import _DTYPES, _on_cuda, reference_double_affine_leaky
+from ...utils.device import one_pass_tf32
 
 COUT_STEP = 32     # Cout granularity: one wgmma n32 instruction
 # output channels of one block: the largest wgmma N in bf16; in fp32 half of
@@ -49,14 +54,25 @@ MAX_N_TILE = {torch.bfloat16: 256, torch.float32: 128}
 TARGET_BLOCKS = 264  # two resident blocks on each of the H100's 132 SMs
 
 
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """float32 v rounded to TF32 (10 mantissa bits; its 13 low bits 0), to
+    nearest with ties away from zero as `cvt.rna.tf32.f32` rounds."""
+    return ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
 def reference_modconv3x3(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
                          g2: torch.Tensor, b2: torch.Tensor, w: torch.Tensor,
-                         bias: torch.Tensor) -> torch.Tensor:
+                         bias: torch.Tensor, tf32: bool = False
+                         ) -> torch.Tensor:
     """Plain PyTorch version, in x's dtype (the math of the JAX package's
-    `_xla_composition`): modulation, then a torch conv, then `+ bias`."""
+    `_xla_composition`): modulation, then a torch conv, then `+ bias`.
+    `tf32` (fp32): the one-pass kernel's math, both conv operands rounded
+    to TF32 first (their products are exact in fp32, the sums fp32)."""
     h = reference_double_affine_leaky(x, g1, b1, g2, b2)
-    y = F.conv2d(h.permute(0, 3, 1, 2), w.to(h.dtype).permute(3, 2, 0, 1),
-                 padding=1)
+    w = w.to(h.dtype)
+    if tf32 and h.dtype == torch.float32:
+        h, w = tf32_round(h), tf32_round(w)
+    y = F.conv2d(h.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
     return y.permute(0, 2, 3, 1) + bias.to(h.dtype)
 
 
@@ -118,13 +134,10 @@ def _plan(b: int, h: int, w: int, cin: int, cout: int,
 
 def tf32_split(v: torch.Tensor):
     """(hi, lo) float32 with hi = tf32(v) and lo = tf32(v - hi), both
-    rounded to nearest with ties away from zero as `cvt.rna.tf32.f32` does:
-    hi keeps 10 mantissa bits (its 13 low bits are 0), and hi + lo is v to
-    about 2^-22 relative. The operand split of the kernel's 3xTF32."""
-    def rna(t):
-        return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
-    hi = rna(v)
-    return hi, rna(v - hi)
+    `tf32_round`ed: hi + lo is v to about 2^-22 relative. The operand
+    split of the kernel's 3xTF32."""
+    hi = tf32_round(v)
+    return hi, tf32_round(v - hi)
 
 
 def _packed_shape(plan: Plan, parts: int, taps: int = 9):
@@ -133,11 +146,14 @@ def _packed_shape(plan: Plan, parts: int, taps: int = 9):
             8, plan.kc // 2)
 
 
-def _pack_weights(w: torch.Tensor, plan: Plan) -> torch.Tensor:
+def _pack_weights(w: torch.Tensor, plan: Plan,
+                  one_pass: bool = False) -> torch.Tensor:
     """w [3, 3, Cin, Cout] HWIO, or a 1x1 [1, 1, Cin, Cout] (any strides)
     -> the kernels' weight stages, zero-padded to chunks * ks * kc input
     and n_tiles * nt * 32 output channels: [n tile][chunk][tap][k step]
-    [part][N / 8][2][8][kc / 2], part = (w,) in bf16 and (hi, lo) in fp32.
+    [part][N / 8][2][8][kc / 2], part = (w,) in bf16 and (hi, lo) in fp32
+    (`one_pass`: hi and zeros; the pack kernel leaves lo unwritten, and
+    the one-pass kernels read hi alone).
     One stage (chunk, tap) holds the B operands of ks wgmma k steps: 8-row
     core matrices of 16 bytes (8 output channels x kc / 2 input channels),
     the two K columns 128 bytes apart and the 8-row groups 256 bytes
@@ -153,7 +169,12 @@ def _pack_weights(w: torch.Tensor, plan: Plan) -> torch.Tensor:
         w = padded
     w = w.reshape(kh * kw, plan.chunks, plan.ks, 2, kt, plan.n_tiles,
                   ntile // 8, 8)
-    parts = tf32_split(w) if w.dtype == torch.float32 else (w,)
+    if w.dtype != torch.float32:
+        parts = (w,)
+    elif one_pass:
+        parts = (tf32_round(w), torch.zeros_like(w))
+    else:
+        parts = tf32_split(w)
     packed = w.new_empty(_packed_shape(plan, len(parts), kh * kw))
     for i, part in enumerate(parts):
         # (tap, chunk, ks, kb, kt, ntile, nb, r)
@@ -172,23 +193,26 @@ def _lib():
         lib = _build.load()
         pack, fwd = lib.gct_fused_modconv3x3_pack, lib.gct_fused_modconv3x3_fwd
         pack.argtypes = ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
-                          ctypes.c_void_p] + [ctypes.c_int] * 7
+                          ctypes.c_void_p] + [ctypes.c_int] * 8
                          + [ctypes.c_void_p])
         fwd.argtypes = ([ctypes.c_void_p] * 6
                         + [ctypes.POINTER(ctypes.c_longlong)]
-                        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
+                        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
                         + [ctypes.c_void_p])
         pack.restype = fwd.restype = ctypes.c_int
         _fns = pack, fwd
     return _fns
 
 
-def pack_weights(w: torch.Tensor, plan: Plan) -> torch.Tensor:
+def pack_weights(w: torch.Tensor, plan: Plan,
+                 one_pass: bool = False) -> torch.Tensor:
     """`_pack_weights` for the kernel: its plain version on a CPU tensor,
     on a CUDA tensor the pack kernel (one launch, reading w at its own
-    strides, so the HWIO view of a torch OIHW weight is not copied first)."""
+    strides, so the HWIO view of a torch OIHW weight is not copied first;
+    with `one_pass` the lo plane is left unwritten)."""
+    one_pass = one_pass and w.dtype == torch.float32
     if w.device.type == "cpu":
-        return _pack_weights(w, plan)
+        return _pack_weights(w, plan, one_pass)
     parts = 2 if w.dtype == torch.float32 else 1
     taps = w.shape[0] * w.shape[1]
     packed = torch.empty(_packed_shape(plan, parts, taps), dtype=w.dtype,
@@ -197,7 +221,7 @@ def pack_weights(w: torch.Tensor, plan: Plan) -> torch.Tensor:
     with torch.cuda.device(w.device):
         rc = _lib()[0](w.data_ptr(), strides, packed.data_ptr(), taps,
                        w.shape[2], w.shape[3], plan.nt, plan.ks,
-                       plan.n_tiles, _DTYPES[w.dtype],
+                       plan.n_tiles, _DTYPES[w.dtype], int(one_pass),
                        torch.cuda.current_stream(w.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_modconv3x3 weight pack: CUDA error {rc} "
@@ -231,9 +255,11 @@ def _check(x, g1, b1, g2, b2, w, bias) -> None:
 
 
 def _forward(x, g1, b1, g2, b2, w, bias) -> torch.Tensor:
-    """K2 forward: the plain version for a CPU tensor, else the kernel."""
+    """K2 forward: the plain version for a CPU tensor, else the kernel, in
+    fp32 one TF32 pass or three as `one_pass_tf32` says now."""
+    one_pass = x.dtype == torch.float32 and one_pass_tf32()
     if x.device.type == "cpu":
-        return reference_modconv3x3(x, g1, b1, g2, b2, w, bias)
+        return reference_modconv3x3(x, g1, b1, g2, b2, w, bias, one_pass)
     # w may be any strided HWIO view: the pack reads it once
     _on_cuda(("x", "g1", "b1", "g2", "b2", "bias"), (x, g1, b1, g2, b2, bias))
     if not _supported(w):
@@ -255,11 +281,12 @@ def _forward(x, g1, b1, g2, b2, w, bias) -> torch.Tensor:
             b2.data_ptr(), w.data_ptr(), (ctypes.c_longlong * 4)(*w.stride()),
             bias.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, h, wd,
             cin, cout, plan.nt, plan.n_tiles, plan.cps, plan.splits,
-            _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+            _DTYPES[x.dtype], int(one_pass),
+            torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_modconv3x3: CUDA error {rc} at launch "
                            f"(x {tuple(x.shape)}, w {tuple(w.shape)}, "
-                           f"{x.dtype}, {plan})")
+                           f"{x.dtype}, one_pass {one_pass}, {plan})")
     fused_modconv3x3.launches += 1
     return out
 
@@ -303,7 +330,8 @@ def fused_modconv3x3(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
 
     Differentiable in all seven inputs. CPU tensors run the plain versions;
     CUDA tensors must be `_supported` and contiguous (w may be any strided
-    view: it is packed once per forward), and run the kernels
+    view: it is packed once per forward), and run the kernels. fp32 runs
+    one TF32 pass where `one_pass_tf32()`, else 3xTF32
     (each forward launch adds one to `fused_modconv3x3.launches`; the
     backward launches K1 bwd, with h, and counts on its counter)."""
     _check(x, g1, b1, g2, b2, w, bias)

@@ -24,10 +24,12 @@ conv2's A operand. `_plan` picks the output tile (any height and width of
 the stacked image: the kernel's M rows are a flattened pitch grid), the N
 tile and the weight ring per shape, within the card's shared memory. Each
 forward packs w1, w2 and ws with K2's pack kernel into one scratch buffer
-and launches the kernel once. A CPU tensor takes the plain PyTorch version
-below, `reference_resblock_g`; a CUDA tensor launches the kernel or
-raises. Unlike the JAX op, which falls back to the composition for a shape
-its kernel declines, a CUDA tensor of a shape K3 does not take raises.
+and launches the kernel once. fp32 runs one TF32 product per product in
+place of three as K2 does (`utils/device.py::one_pass_tf32`). A CPU
+tensor takes the plain PyTorch version below, `reference_resblock_g`; a
+CUDA tensor launches the kernel or raises. Unlike the JAX op, which falls
+back to the composition for a shape its kernel declines, a CUDA tensor of
+a shape K3 does not take raises.
 
 `fused_resblock_g` is a `torch.autograd.Function`, differentiable in all
 16 inputs. Its backward recomputes the block as the JAX package's VJP
@@ -52,7 +54,8 @@ from . import _build
 from . import fused_affine, fused_modconv
 from .. import nn as ops_nn
 from .fused_affine import _DTYPES, _on_cuda
-from .fused_modconv import COUT_STEP, reference_modconv3x3
+from .fused_modconv import (COUT_STEP, one_pass_tf32, reference_modconv3x3,
+                            tf32_round)
 
 MAX_COUT = 256   # the widest wgmma N, and raw h1 of a tile in shared memory
 SMEM_LIMIT = 232448   # the H100's opt-in shared memory a block (csrc)
@@ -79,15 +82,20 @@ _NAMES = ("x", "g1", "b1", "g2", "b2", "w1", "c1", "g3", "b3", "g4", "b4",
 
 
 def reference_resblock_g(x, g1, b1, g2, b2, w1, c1, g3, b3, g4, b4, w2, c2,
-                         gamma, ws=None, cs=None) -> torch.Tensor:
+                         gamma, ws=None, cs=None, tf32: bool = False
+                         ) -> torch.Tensor:
     """Plain PyTorch version, in x's dtype (the math of the JAX package's
     `_xla_composition`): two modulation + conv + bias DFBlocks, the
-    shortcut, then `shortcut + gamma * h2`."""
-    h1 = reference_modconv3x3(x, g1, b1, g2, b2, w1, c1)
-    h2 = reference_modconv3x3(h1, g3, b3, g4, b4, w2, c2)
+    shortcut, then `shortcut + gamma * h2`. `tf32` (fp32): the one-pass
+    kernel's math, every conv's operands rounded to TF32 first."""
+    h1 = reference_modconv3x3(x, g1, b1, g2, b2, w1, c1, tf32)
+    h2 = reference_modconv3x3(h1, g3, b3, g4, b4, w2, c2, tf32)
     shortcut = x
     if ws is not None:
-        y = F.conv2d(x.permute(0, 3, 1, 2), ws.to(x.dtype).permute(3, 2, 0, 1))
+        xs, ws = x, ws.to(x.dtype)
+        if tf32 and x.dtype == torch.float32:
+            xs, ws = tf32_round(xs), tf32_round(ws)
+        y = F.conv2d(xs.permute(0, 3, 1, 2), ws.permute(3, 2, 0, 1))
         shortcut = y.permute(0, 2, 3, 1) + cs.to(x.dtype)
     return shortcut + gamma.to(x.dtype) * h2
 
@@ -241,7 +249,7 @@ def _lib():
         fn.argtypes = ([ctypes.c_void_p] * 6 + [strides]
                        + [ctypes.c_void_p] * 6 + [strides]
                        + [ctypes.c_void_p] * 3 + [strides]
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
@@ -293,13 +301,14 @@ def _check(x, g1, b1, g2, b2, w1, c1, g3, b3, g4, b4, w2, c2, gamma, ws,
 
 
 def _forward(*args) -> torch.Tensor:
-    """K3 forward: the plain version for a CPU tensor, else the kernel.
-    `args` are the 16 inputs with gamma already of shape [1] in x's
-    dtype."""
+    """K3 forward: the plain version for a CPU tensor, else the kernel, in
+    fp32 one TF32 pass or three as `one_pass_tf32` says now. `args` are
+    the 16 inputs with gamma already of shape [1] in x's dtype."""
     (x, g1, b1, g2, b2, w1, c1, g3, b3, g4, b4, w2, c2, gamma, ws,
      cs) = args
+    one_pass = x.dtype == torch.float32 and one_pass_tf32()
     if x.device.type == "cpu":
-        return reference_resblock_g(*args)
+        return reference_resblock_g(*args, tf32=one_pass)
     present = [(n, t) for n, t in zip(_NAMES, args) if t is not None]
     _on_cuda(*zip(*present))
     if not _supported(w1):
@@ -329,11 +338,12 @@ def _forward(*args) -> torch.Tensor:
             strides(w2), ptr(c2), ptr(gamma), ptr(ws), strides(ws),
             ptr(cs), out.data_ptr(), scratch.data_ptr(), b, h, w, cin, cout,
             plan.nt, plan.th, plan.tw, plan.stages, _DTYPES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
+            int(one_pass), torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_resblock_g: CUDA error {rc} at launch "
                            f"(x {tuple(x.shape)}, w1 {tuple(w1.shape)}, "
-                           f"shortcut {ws is not None}, {x.dtype}, {plan})")
+                           f"shortcut {ws is not None}, {x.dtype}, "
+                           f"one_pass {one_pass}, {plan})")
     fused_resblock_g.launches += 1
     return out
 
@@ -399,6 +409,7 @@ def fused_resblock_g(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
 
     Differentiable in all 16 inputs. CPU tensors run the plain versions;
     CUDA tensors must be contiguous and `_supported`, and run the kernels
+    (fp32 one TF32 pass where `one_pass_tf32()`, else 3xTF32)
     (each forward launch adds one to `fused_resblock_g.launches`; the
     backward launches K1 and K1 bwd and counts on their counters)."""
     _check(x, g1, b1, g2, b2, w1, c1, g3, b3, g4, b4, w2, c2, gamma, ws, cs)

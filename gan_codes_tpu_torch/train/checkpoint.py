@@ -57,8 +57,10 @@ CONFIG_RESUME_MUTABLE = frozenset({
     "train.eval_every_epochs",
     "train.eval_sqrtm",
     "data.data_dir",
-    # Pure-performance knobs of the JAX package's TPU compile (exact math),
-    # kept in the config and ignored by the port.
+    # Pure-performance knobs (exact math): the JAX package's TPU compile
+    # and (below) train.device_prefetch, kept in the config and ignored by
+    # the port, and one the port acts on without changing a result,
+    # generator.remat_blocks.
     "train.xla_scoped_vmem_kib",
     "generator.remat_blocks",
     "generator.lane_pad",

@@ -32,6 +32,12 @@ so clip, Adam and the EMA keep the ranks in lockstep bit for bit.
 `DistributedDataParallel` would do neither: it averages per-rank losses,
 which drops a mismatch pair at every rank boundary, and it does not reduce
 gradients taken with `torch.autograd.grad`, as every gradient here is.
+
+`debug_nans` (`--debug-nans`; JAX: `jax_debug_nans`) fails fast: the step
+checks the G forward's images, then each phase's loss and gradients (after
+the reduction over ranks, before the NaN guard could hide them), and
+raises `FloatingPointError` naming the phase and the first tensor that
+holds a NaN. It costs one host sync a check, so it is off by default.
 """
 from __future__ import annotations
 
@@ -83,8 +89,19 @@ def _next_sentence(mesh: Mesh, sents: torch.Tensor
         if mesh.rank + 1 < mesh.world else None
 
 
-def make_train_step(cfg: GANConfig,
-                    mesh: Optional[Mesh] = None) -> Callable[..., Metrics]:
+def _raise_on_nan(phase: str, named) -> None:
+    """Raise FloatingPointError naming the first of `named` ((name,
+    tensor) pairs) that holds a NaN: one host sync for all of them."""
+    names = [n for n, _ in named]
+    flags = torch.stack([torch.isnan(t).any() for _, t in named]).cpu()
+    if flags.any():
+        bad = names[int(flags.nonzero()[0])]
+        raise FloatingPointError(f"NaN in the train step's {phase}: {bad} "
+                                 "(--debug-nans)")
+
+
+def make_train_step(cfg: GANConfig, mesh: Optional[Mesh] = None,
+                    debug_nans: bool = False) -> Callable[..., Metrics]:
     """Build `step(state, text_encoder, images, captions, cap_lens,
     noise=None) -> metrics`.
 
@@ -108,7 +125,8 @@ def make_train_step(cfg: GANConfig,
     rank's rows (every rank the same count), `noise`, when given, its rows
     of the global noise, and the metrics are the global batch's, the same
     on every rank. A mesh of one process without a group computes the
-    same forms with no collective."""
+    same forms with no collective. `debug_nans`: the module docstring's
+    checks, each raising `FloatingPointError`."""
     gen_cfg, loss_cfg = cfg.generator, cfg.loss
     cdtype = cfg.train.compute_torch_dtype
     gp_dtype = (torch.bfloat16 if loss_cfg.gp_compute_dtype == "bfloat16"
@@ -133,13 +151,18 @@ def make_train_step(cfg: GANConfig,
         return (losses.nan_guard_loss(loss, rng),
                 losses.zero_grads_if_nonfinite(loss, grads))
 
+    def check(phase, loss_name, loss, grads, names):
+        if debug_nans:
+            _raise_on_nan(phase, [(loss_name, loss)] + list(zip(names,
+                                                                grads)))
+
     def step(state: TrainState, text_encoder: torch.nn.Module,
              images: torch.Tensor, captions: torch.Tensor,
              cap_lens: torch.Tensor,
              noise: Optional[torch.Tensor] = None) -> Metrics:
         g, d = state.generator, state.discriminator
-        g_params = list(g.parameters())
-        d_params = list(d.parameters())
+        g_names, g_params = zip(*g.named_parameters())
+        d_names, d_params = zip(*d.named_parameters())
         batch = images.shape[0]
 
         # the global batch under data parallelism, else None (plain means)
@@ -158,12 +181,15 @@ def make_train_step(cfg: GANConfig,
         # One G forward for the whole step; its graph is kept for phase 3.
         fake = g(noise.to(cdtype), sents_c)
         fake_detached = fake.detach()
+        if debug_nans:
+            _raise_on_nan("G forward", [("fake images", fake_detached)])
 
         # ---- Phase 1: D hinge (adversarial + mismatch) ----
         d_loss = losses.d_hinge_loss(
             d, images_c, fake_detached, sents_c, count,
             None if next_sent is None else next_sent.to(cdtype)).float()
         d_grads, (d_loss,) = reduce(_grads(d_loss, d_params), d_loss)
+        check("phase 1 (D hinge)", "d_loss", d_loss, d_grads, d_names)
         d_loss, d_grads = guard(d_loss, d_grads, state.rng)
         state.d_opt.step(d_grads)
 
@@ -173,6 +199,7 @@ def make_train_step(cfg: GANConfig,
             gp_loss = losses.ma_gradient_penalty(
                 d, images.to(gp_dtype), sents.to(gp_dtype), gp_cfg, count)
             gp_grads, (gp_loss,) = reduce(_grads(gp_loss, d_params), gp_loss)
+            check("phase 2 (MA-GP)", "gp_loss", gp_loss, gp_grads, d_names)
             gp_loss, gp_grads = guard(gp_loss, gp_grads, state.rng)
             state.d_opt.step(gp_grads)
         else:
@@ -188,6 +215,7 @@ def make_train_step(cfg: GANConfig,
         g_grads, (g_total, g_adv, txtimg) = reduce(
             _grads(fake, g_params, d_fake.to(fake.dtype)),
             g_total, g_adv, txtimg)
+        check("phase 3 (G hinge)", "g_loss", g_total, g_grads, g_names)
         if loss_cfg.nan_guard:
             # keyed on the loss actually differentiated (`step.py:196-201`)
             g_grads = losses.zero_grads_if_nonfinite(g_total, g_grads)

@@ -9,9 +9,15 @@ included), and prints the same per-epoch metric line.
 
 On a card: uint8 batches go to the device from pinned memory,
 non-blocking, and are normalized there; the step's metrics stay on the
-device and come back to the host once per epoch. Data order and eval noise
-are keyed to the epoch, so a killed-and-resumed run equals an
-uninterrupted one. `evaluate` computes IS and FID with the Inception
+device and come back to the host once per epoch. Batch i + 1's upload is
+issued before step i, as the JAX trainer's `device_prefetch` does, always:
+with one process on a card it runs on a side CUDA stream that the step's
+stream waits for, elsewhere (the CPU, data parallelism) in the same order
+on the step's; the steps and the trajectory are those of the plain loop.
+`cfg.train.device_prefetch` (`--device-prefetch`) is kept so that the JAX
+package's configs and command lines load, and changes nothing. Data order
+and eval noise are keyed to the epoch, so a killed-and-resumed run equals
+an uninterrupted one. `evaluate` computes IS and FID with the Inception
 weights it was given (`eval/metrics.py`; the fakes, the reals and the
 network stay on the device, the features come back), and records the
 reference's failure sentinels, IS 1.0 and FID inf, without them.
@@ -34,6 +40,7 @@ checkpointing.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Dict, List, Optional, Tuple
@@ -61,12 +68,13 @@ class Trainer:
                  code2word: Optional[Dict[int, str]] = None,
                  inception_params=None, seed: Optional[int] = None,
                  device: str | torch.device = "cuda",
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, debug_nans: bool = False):
         """`text_encoder` maps (captions, cap_lens) to sentence embeddings
         and is frozen; it and `inception_params` (`models/inception.py`;
         None: IS/FID record their sentinels) are moved to `device` (CUDA
         unless the caller passes "cpu"; raises without a card), or under
-        data parallelism to `mesh.device`."""
+        data parallelism to `mesh.device`. `debug_nans`: each step raises
+        `FloatingPointError` at its first NaN (`train/step.py`)."""
         self.mesh = mesh
         self.primary = mesh is None or mesh.primary
         self.device = mesh.device if mesh is not None \
@@ -97,7 +105,13 @@ class Trainer:
         self._use_scipy_sqrtm = cfg.train.eval_sqrtm != "newton_schulz"
         # (test_loader, multihost, real side) for FID, _cached_real_side()
         self._real_fid_stats = None
-        self._step_fn = make_train_step(cfg, mesh)
+        self._step_fn = make_train_step(cfg, mesh, debug_nans)
+        # the batches' uploads run one ahead of the steps on a stream of
+        # their own on a card with one process (as the JAX trainer's
+        # device prefetch, `jax.process_count() == 1`), else on the step's
+        self._copy_stream = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" and (mesh is None
+                                               or mesh.world == 1) else None
         self._eval_seed = seed + 1
         self._eval_rng = self._epoch_generator(0)
         # per-step scalar series of the last train_epoch (only retained when
@@ -140,22 +154,49 @@ class Trainer:
             images = images.float() / 127.5 - 1.0
         return images, captions, cap_lens
 
+    def _stage(self, batches):
+        """The loader's next batch on the device, or None at its end:
+        (images, captions, cap_lens, ready). With the copy stream the
+        upload runs there and `ready` is the event that ends it."""
+        t0 = time.perf_counter()
+        batch = next(batches, None)
+        self.host_seconds["data_wait"] += time.perf_counter() - t0
+        if batch is None:
+            return None
+        stream = self._copy_stream
+        with torch.cuda.stream(stream) if stream is not None \
+                else contextlib.nullcontext():
+            with self.timers["h2d"]:  # its events on the upload's stream
+                staged = self._device_batch(batch)
+            ready = None if stream is None else stream.record_event()
+        return (*staged, ready)
+
+    def _await(self, staged) -> Tuple[torch.Tensor, ...]:
+        """The staged batch for the step's stream: it waits for the
+        upload, and the caching allocator learns that the step's stream
+        uses the tensors the side stream allocated."""
+        *tensors, ready = staged
+        if ready is not None:
+            compute = torch.cuda.current_stream(self.device)
+            compute.wait_event(ready)
+            for t in tensors:
+                if t.is_cuda:
+                    t.record_stream(compute)
+        return tuple(tensors)
+
     def train_epoch(self, train_loader) -> Dict[str, float]:
         """One pass over the loader; returns each metric's mean over the
-        epoch's steps (one host transfer for the whole epoch)."""
+        epoch's steps (one host transfer for the whole epoch). Batch
+        i + 1's upload is issued before step i."""
         metric_accum: Dict[str, List[torch.Tensor]] = {}
         batches = iter(train_loader)
-        while True:
-            t0 = time.perf_counter()
-            batch = next(batches, None)
-            self.host_seconds["data_wait"] += time.perf_counter() - t0
-            if batch is None:
-                break
-            with self.timers["h2d"]:
-                images, captions, cap_lens = self._device_batch(batch)
+        staged = self._stage(batches)
+        while staged is not None:
+            current = self._await(staged)
+            staged = self._stage(batches)
             with self.timers["step"]:
                 metrics = self._step_fn(self.state, self.text_encoder,
-                                        images, captions, cap_lens)
+                                        *current)
             for k, v in metrics.items():
                 metric_accum.setdefault(k, []).append(v)
         if not metric_accum:

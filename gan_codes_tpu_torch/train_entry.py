@@ -32,10 +32,33 @@ percents of a loss); the step is slower for it (`PERF.md` §5).
 `--mesh-layout` and `--mesh-slices` take only their defaults (`flat`, 0),
 so scripts written for the JAX CLI still parse; any other value is an
 error, since they shape the JAX package's TPU mesh and NCCL picks its own
-rings. Not ported: the JAX package's other TPU dispatch knobs, which
-are exact math and have no meaning here (`--steps-per-dispatch`,
-`--device-prefetch`, `--compile-cache`, `--xla-vmem-kib`, the lane and
-image padding).
+rings.
+
+The JAX CLI's options that mean something on the card:
+
+* `--matmul-precision {default,high,highest}` (JAX's
+  `jax_default_matmul_precision`): "high" and "default" run fp32 convs
+  and matmuls as one TF32 product, in cuDNN, cuBLAS and the kernels K2
+  and K3 (`utils/device.py::set_matmul_precision`); absent or "highest"
+  keeps fp32 (TF32 off; K2 and K3 in 3xTF32). Unlike JAX on a TPU, where
+  the absent flag means one bf16 pass, the absent flag here is the
+  reference's CUDA fp32. The setting holds for the run and is restored
+  after it. bf16 compute is unchanged by it.
+* `--remat-g`: recompute each generator block in the backward
+  (`GeneratorConfig.remat_blocks`): less activation memory, a longer step,
+  the same gradients.
+* `--device-prefetch` (`TrainConfig.device_prefetch`): accepted and
+  recorded, and changes nothing: the port's trainer always uploads batch
+  i + 1 while step i runs (on a side CUDA stream with one process on a
+  card), with the plain loop's trajectory.
+* `--debug-nans` (JAX's `jax_debug_nans`): each step raises
+  `FloatingPointError` at its first NaN, naming the phase and the tensor,
+  before the NaN guard hides it; the run then exits non-zero.
+
+Not ported: the JAX package's TPU compilation and dispatch knobs, which are
+exact math and have no meaning here: `--compile-cache`, `--xla-vmem-kib`,
+the lane and image padding, and `--steps-per-dispatch` (its counterpart
+on the card, a CUDA graph of the step, is a speed change for later).
 """
 from __future__ import annotations
 
@@ -54,7 +77,8 @@ from .models.torch_import import load_text_encoder
 from .parallel.dp import loader_shard
 from .parallel.mesh import close_mesh, init_mesh
 from .train.trainer import Trainer
-from .utils.device import serving_device
+from .utils.device import (MATMUL_PRECISIONS, serving_device,
+                           set_matmul_precision)
 from .utils.seeding import fix_seed
 
 
@@ -71,16 +95,26 @@ def train(data_path: str, encoder_weights_path: Optional[str],
           eval_every: int = 1, eval_sqrtm: str = "scipy",
           device: str | torch.device = "cuda",
           data_parallel: bool = False, multihost: bool = False,
-          deterministic: bool = False):
+          deterministic: bool = False,
+          matmul_precision: Optional[str] = None, remat_g: bool = False,
+          device_prefetch: bool = False, debug_nans: bool = False):
     """Train (or resume) a DF-GAN on a CUB-format directory; returns the
-    metric histories. `data_parallel` / `multihost` / `deterministic`: the
-    module docstring's `--dp` / `--multihost` / `--deterministic` (cuDNN's
-    flag is set for the call and restored after it)."""
+    metric histories. `data_parallel` / `multihost` / `deterministic` /
+    `matmul_precision` / `remat_g` / `device_prefetch` / `debug_nans`: the
+    module docstring's `--dp` / `--multihost` / `--deterministic` /
+    `--matmul-precision` / `--remat-g` / `--device-prefetch` /
+    `--debug-nans` (cuDNN's flag and the precision are set for the call
+    and restored after it)."""
     cudnn_deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = cudnn_deterministic or deterministic
     mesh = init_mesh(device) if data_parallel or multihost else None
+    # the precision this call replaced, once it has set one (after the
+    # device is resolved: serving_device keeps a set precision)
+    replaced = None
     try:
         dev = mesh.device if mesh is not None else serving_device(device)
+        if matmul_precision is not None:
+            replaced = (set_matmul_precision(matmul_precision),)
         primary = mesh is None or mesh.primary
         shard = {}
         if mesh is not None:
@@ -110,10 +144,11 @@ def train(data_path: str, encoder_weights_path: Optional[str],
                             "gp_compute_dtype": gp_compute_dtype,
                             "gp_interval": gp_interval},
             batch_size=batch_size, num_epochs=num_epochs, seed=seed,
+            generator_overrides={"remat_blocks": remat_g},
             compute_dtype=compute_dtype, eval_use_ema=eval_use_ema,
             checkpoint_every_epochs=ckpt_every,
             log_every_steps=log_every_steps, eval_every_epochs=eval_every,
-            eval_sqrtm=eval_sqrtm)
+            eval_sqrtm=eval_sqrtm, device_prefetch=device_prefetch)
 
         train_loader = DataLoader(train_ds, batch_size, seed=seed, **shard)
         test_loader = DataLoader(test_ds, batch_size, shuffle=False, seed=seed,
@@ -137,7 +172,7 @@ def train(data_path: str, encoder_weights_path: Optional[str],
         trainer = Trainer(cfg, text_encoder, gen_path_save, image_save_path,
                           code2word=train_ds.code2word,
                           inception_params=inception_params, seed=seed,
-                          device=dev, mesh=mesh)
+                          device=dev, mesh=mesh, debug_nans=debug_nans)
         try:
             histories = trainer.fit(train_loader, test_loader,
                                     num_epochs=num_epochs, auto_resume=True)
@@ -156,6 +191,8 @@ def train(data_path: str, encoder_weights_path: Optional[str],
     finally:
         close_mesh(mesh)
         torch.backends.cudnn.deterministic = cudnn_deterministic
+        if replaced is not None:
+            set_matmul_precision(replaced[0])
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -223,6 +260,23 @@ def main(argv: Optional[Sequence[str]] = None):
     p.add_argument("--deterministic", action="store_true",
                    help="cuDNN's deterministic algorithms: runs repeat bit "
                         "for bit on the card (a slower step)")
+    p.add_argument("--matmul-precision", default=None,
+                   choices=list(MATMUL_PRECISIONS),
+                   help="fp32 convs and matmuls, as JAX's "
+                        "jax_default_matmul_precision: 'high' and "
+                        "'default' run one TF32 product (cuDNN, cuBLAS "
+                        "and the kernels K2, K3); absent or 'highest' "
+                        "fp32 (the reference's CUDA fp32)")
+    p.add_argument("--remat-g", action="store_true",
+                   help="recompute each G block in the backward instead "
+                        "of keeping its activations (same gradients)")
+    p.add_argument("--device-prefetch", action="store_true",
+                   help="accepted for the JAX CLI's scripts; the "
+                        "trainer always uploads batch i+1 while step i "
+                        "runs (on a side CUDA stream with one process)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="fail fast: raise FloatingPointError at a step's "
+                        "first NaN, naming the phase and tensor")
     p.add_argument("--mesh-layout", default="flat",
                    help="the JAX package's TPU mesh layout; only the "
                         "default 'flat' (NCCL picks its own rings)")
@@ -247,7 +301,10 @@ def main(argv: Optional[Sequence[str]] = None):
                  log_every_steps=a.log_every_steps, eval_every=a.eval_every,
                  eval_sqrtm=a.eval_sqrtm, device=a.device,
                  data_parallel=a.dp, multihost=a.multihost,
-                 deterministic=a.deterministic)
+                 deterministic=a.deterministic,
+                 matmul_precision=a.matmul_precision, remat_g=a.remat_g,
+                 device_prefetch=a.device_prefetch,
+                 debug_nans=a.debug_nans)
 
 
 if __name__ == "__main__":

@@ -34,6 +34,7 @@ from gan_codes_tpu_torch.models.text_encoder import RNNEncoder
 from gan_codes_tpu_torch.ops import nn as pnn
 from gan_codes_tpu_torch.train import state as pstate
 from gan_codes_tpu_torch.train.step import make_train_step
+from torch_port_env import one_thread_children  # noqa: E402,F401
 
 T = torch.from_numpy
 

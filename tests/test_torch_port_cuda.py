@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
 K1 forward and backward (one launch, with z), K2 forward and its weight
-pack, K3 forward (one kernel, bit for bit on a repeat), and the gradients
+pack, K3 forward (one kernel, bit for bit on a repeat), the one-pass TF32
+mode of K2 and K3 (the process's precision at "high"), and the gradients
 of the kernels' autograd Functions against the plain versions' autograd.
 
 Every test here is marked `cuda` and skips without a CUDA device. On a
@@ -18,6 +19,8 @@ import torch
 
 from gan_codes_tpu_torch.ops.kernels import (fused_affine, fused_modconv,
                                              fused_resblock)
+from gan_codes_tpu_torch.utils import device as pdevice
+from torch_port_env import one_thread_children  # noqa: E402,F401
 
 
 def _k1_inputs(shape, seed=0):
@@ -65,6 +68,31 @@ def cuda():
                     "kernel")
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+@pytest.fixture
+def one_pass(cuda):
+    """The card with the process's fp32 precision at "high" (one TF32
+    product in K2 and K3), restored after the test."""
+    previous = pdevice.set_matmul_precision("high")
+    yield cuda
+    pdevice.set_matmul_precision(previous)
+
+
+def _fp32(fn):
+    """fn() at the precision "highest" (TF32 off in cuDNN too), then the
+    precision back."""
+    previous = pdevice.set_matmul_precision("highest")
+    try:
+        return fn()
+    finally:
+        pdevice.set_matmul_precision(previous)
+
+
+def _gaps(got, want, full):
+    """max|got - want| and max|got - full| (float64)."""
+    return ((got.double() - want.double()).abs().max().item(),
+            (got.double() - full.double()).abs().max().item())
 
 
 @pytest.mark.cuda
@@ -246,6 +274,37 @@ class TestKernelsOnCard:
         want = fused_modconv.pack_weights(w, plan)
         assert torch.equal(got.cpu(), want)
 
+    @pytest.mark.parametrize("dims", [(2, 16, 16, 32, 64),
+                                      (1, 5, 7, 3, 128),
+                                      (8, 4, 4, 256, 256)])
+    def test_k2_one_pass_tf32(self, one_pass, dims):
+        """One TF32 product per product, against the plain version of that
+        mode (both operands rounded to TF32, so the products are exact and
+        only the sums' order differs): allclose 1e-4, as 3xTF32 against
+        fp32; further from the fp32 plain version than from it; a second
+        call bit for bit."""
+        args = [torch.from_numpy(a).to(one_pass) for a in _k2_inputs(*dims)]
+        assert fused_modconv.one_pass_tf32()
+        got = fused_modconv.fused_modconv3x3(*args)
+        again = fused_modconv.fused_modconv3x3(*args)
+        want = fused_modconv.reference_modconv3x3(*args, tf32=True)
+        full = _fp32(lambda: fused_modconv.reference_modconv3x3(*args))
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        to_tf32, to_fp32 = _gaps(got, want, full)
+        assert to_fp32 > to_tf32, (to_tf32, to_fp32)
+
+    @pytest.mark.parametrize("dims", [(2, 8, 8, 20, 96), (8, 4, 4, 64, 288)])
+    def test_k2_one_pass_weight_pack(self, cuda, dims):
+        """The one-pass pack kernel writes the hi plane of the 3xTF32 pack
+        bit for bit (its lo plane is left unwritten)."""
+        plan = fused_modconv._plan(*dims, torch.float32)
+        w = torch.from_numpy(_k2_inputs(1, 1, 1, *dims[3:])[5])
+        got = fused_modconv.pack_weights(w.to(cuda), plan, one_pass=True)
+        want = fused_modconv.pack_weights(w, plan)
+        assert torch.equal(got.cpu()[:, :, :, :, 0], want[:, :, :, :, 0])
+
 
 @pytest.mark.cuda
 class TestResBlockOnCard:
@@ -373,6 +432,25 @@ class TestResBlockOnCard:
                 continue
             err = (t.grad - w.grad).abs().max().item()
             assert err <= 1e-3 * w.grad.abs().max().item()
+
+    @pytest.mark.parametrize("dims", [(2, 4, 4, 256, 256, False),
+                                      (2, 19, 21, 64, 32, True),
+                                      (1, 24, 40, 36, 64, True)])
+    def test_k3_one_pass_tf32(self, one_pass, dims):
+        """K3 with one TF32 product per product against its plain version
+        of that mode: allclose 2e-4, as 3xTF32 against fp32; further from
+        the fp32 plain version than from it; a second call bit for bit."""
+        args = [None if a is None else torch.from_numpy(a).to(one_pass)
+                for a in _k3_inputs(*dims)]
+        got = fused_resblock.fused_resblock_g(*args)
+        again = fused_resblock.fused_resblock_g(*args)
+        want = fused_resblock.reference_resblock_g(*args, tf32=True)
+        full = _fp32(lambda: fused_resblock.reference_resblock_g(*args))
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+        to_tf32, to_fp32 = _gaps(got, want, full)
+        assert to_fp32 > to_tf32, (to_tf32, to_fp32)
 
     def test_k3_refuses_unsupported_cout(self, cuda):
         args = [None if a is None else torch.from_numpy(a).to(cuda)

@@ -31,6 +31,7 @@ from gan_codes_tpu_torch.models import torch_import as pimport
 from gan_codes_tpu_torch.parallel.dp import loader_shard
 from gan_codes_tpu_torch.parallel.mesh import Mesh, mesh_layout
 from gan_codes_tpu_torch.tools import dp_check
+from torch_port_env import one_thread_children  # noqa: E402,F401
 
 TIMEOUT = 120  # seconds, every pair of rank processes
 

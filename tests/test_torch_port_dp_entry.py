@@ -26,6 +26,7 @@ from gan_codes_tpu_torch.models.inception import (
     random_torchvision_state_dict)
 from gan_codes_tpu_torch.parallel import mesh as pmesh
 from gan_codes_tpu_torch.tools import dp_check
+from torch_port_env import one_thread_children  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 120  # seconds, every pair of rank processes

@@ -22,6 +22,7 @@ from gan_codes_tpu.models import inception as jinc
 from gan_codes_tpu_torch.eval import metrics as pm
 from gan_codes_tpu_torch.models import inception as pinc
 from gan_codes_tpu_torch.models.torch_import import inception_params_from_jax
+from torch_port_env import one_thread_children  # noqa: E402,F401
 
 T = torch.from_numpy
 

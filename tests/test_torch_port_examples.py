@@ -12,6 +12,7 @@ import torch
 
 from gan_codes_tpu_torch.examples import eval_example, train_example
 from gan_codes_tpu_torch.tools import longrun, validate_pretrained
+from torch_port_env import one_thread_children  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

@@ -36,6 +36,7 @@ from gan_codes_tpu_torch.utils.seeding import fold_seed
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 import convert_checkpoint_torch as convert  # noqa: E402
+from torch_port_env import one_thread_children  # noqa: E402,F401
 
 HISTORIES = {"g_losses": [0.5, 0.4], "d_losses": [2.0, 1.9],
              "d_gp_losses": [0.1, 0.1], "txtimg_losses": [1.0, 0.9],

@@ -27,6 +27,7 @@ from gan_codes_tpu_torch.models.generator import Generator
 from gan_codes_tpu_torch.ops import blocks
 from gan_codes_tpu_torch.ops import nn as pnn
 from gan_codes_tpu_torch.ops.kernels import fused_affine, fused_modconv
+from torch_port_env import one_thread_children  # noqa: E402,F401
 
 
 def _k1_inputs(shape, seed=0):

@@ -7,6 +7,7 @@ import json
 import torch
 
 from gan_codes_tpu_torch.tools import longrun
+from torch_port_env import one_thread_children  # noqa: E402,F401
 
 
 class TestLongrun:

@@ -26,6 +26,7 @@ from gan_codes_tpu_torch.models import torch_import as pimport
 from gan_codes_tpu_torch.ops import blocks as pblocks
 from gan_codes_tpu_torch.ops import fusion as pfusion
 from gan_codes_tpu_torch.ops import nn as pnn
+from torch_port_env import one_thread_children  # noqa: E402,F401
 
 
 def _np_tree(tree):

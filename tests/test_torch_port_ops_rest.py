@@ -29,6 +29,7 @@ from gan_codes_tpu_torch.models import torch_import as pimport
 from gan_codes_tpu_torch.models.generator import Generator
 from gan_codes_tpu_torch.ops import blocks as pblocks
 from gan_codes_tpu_torch.ops import nn as pnn
+from torch_port_env import one_thread_children  # noqa: E402,F401
 
 SDIM, HIDDEN = 12, 24
 

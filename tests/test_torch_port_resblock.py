@@ -19,6 +19,7 @@ from gan_codes_tpu_torch.config import GeneratorConfig
 from gan_codes_tpu_torch.ops import blocks
 from gan_codes_tpu_torch.ops.fusion import affine_params
 from gan_codes_tpu_torch.ops.kernels import fused_resblock as fr
+from torch_port_env import one_thread_children  # noqa: E402,F401
 
 # tests/test_pallas.py::TestFusedResBlock's three forward cases
 CASES = [dict(h=8, w=8, cin=16, cout=16, shortcut=False),

@@ -38,6 +38,7 @@ from gan_codes_tpu_torch.train.state import create_train_state
 from gan_codes_tpu_torch.train.trainer import Trainer
 from gan_codes_tpu_torch.utils import image_io
 from gan_codes_tpu_torch.utils.seeding import fix_seed
+from torch_port_env import one_thread_children  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORD2CODE = {"<end>": 0, "<unk>": 1, "bird": 2, "red": 3, "blue": 4}

@@ -40,6 +40,7 @@ from gan_codes_tpu_torch.models.torch_import import (
     generator_state_dict_from_jax, text_encoder_state_dict_from_jax)
 from gan_codes_tpu_torch.train.checkpoint import CheckpointManager
 from gan_codes_tpu_torch.train.state import create_train_state
+from torch_port_env import one_thread_children  # noqa: E402,F401
 
 WORD2CODE = {"<end>": 0, "<unk>": 1, "bird": 2, "red": 3, "blue": 4}
 CAPS = np.tile(np.arange(1, 7, dtype=np.int64), (11, 1)) % 5
@@ -331,13 +332,17 @@ class TestServerLifecycle:
         first = {}
         t1 = threading.Thread(target=lambda: first.update(
             resp=_post(url, {"prompts": ["a bird"]})))
-        t1.start()
-        assert entered.wait(30)
-        server.shutdown()  # the accept loop stops; the handler runs on
-        threading.Timer(0.5, gate.set).start()
-        t0 = time.monotonic()
-        server.server_close()
-        assert time.monotonic() - t0 >= 0.4
+        try:
+            t1.start()
+            assert entered.wait(30)
+            server.shutdown()  # the accept loop stops; the handler runs on
+            threading.Timer(0.5, gate.set).start()
+            t0 = time.monotonic()
+            server.server_close()
+            assert time.monotonic() - t0 >= 0.4
+        finally:  # a failed check still releases the handler and the port
+            gate.set()
+            _stop(server)
         t1.join(60)
         assert not t1.is_alive() and first["resp"][0] == 200
 

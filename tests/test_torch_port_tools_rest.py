@@ -22,6 +22,7 @@ from gan_codes_tpu_torch.config import GANConfig
 from gan_codes_tpu_torch.models.generator import Generator
 from gan_codes_tpu_torch.tools import validate_pretrained as vp
 from gan_codes_tpu_torch.train.checkpoint import CheckpointManager
+from torch_port_env import one_thread_children  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -40,6 +40,7 @@ from gan_codes_tpu_torch.ops.kernels import fused_affine, fused_modconv
 from gan_codes_tpu_torch.train import losses as plosses
 from gan_codes_tpu_torch.train import state as pstate
 from gan_codes_tpu_torch.train.step import make_train_step
+from torch_port_env import one_thread_children  # noqa: E402,F401
 
 T = torch.from_numpy
 

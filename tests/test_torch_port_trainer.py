@@ -32,6 +32,7 @@ from gan_codes_tpu_torch.train.state import create_train_state
 from gan_codes_tpu_torch.train.step import make_train_step
 from gan_codes_tpu_torch.train.trainer import Trainer
 from gan_codes_tpu_torch.utils import image_io, jsonio, plotting, profiling
+from torch_port_env import one_thread_children  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")
