@@ -45,6 +45,7 @@ from .models.torch_import import (_cfg_from_generator, _maybe_unwrap,
                                   load_text_encoder, torch_load_ref)
 from .parallel.mesh import local_devices
 from .utils.device import serving_device
+from .utils.profiling import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -182,24 +183,38 @@ class Sampler:
                         cap_lens: np.ndarray) -> np.ndarray:
         """Token batch [N, T] + lengths [N] -> float32 images
         [N, H, W, 3] in [-1, 1]. N may be anything: batches are padded to
-        `batch_size` with length-1 rows."""
-        captions = np.asarray(captions, np.int64)
-        cap_lens = np.asarray(cap_lens, np.int64)
-        n = captions.shape[0]
-        bs = self.batch_size
-        outs = []
-        for i in range(0, n, bs):
-            c = captions[i: i + bs]
-            l = cap_lens[i: i + bs]
-            pad = bs - c.shape[0]
-            if pad:
-                c = np.concatenate([c, np.zeros((pad, c.shape[1]), c.dtype)])
-                l = np.concatenate([l, np.ones((pad,), l.dtype)])
-            # every replica's rows launch before the first copy to the host
-            imgs = self._launch(c, l, self._next_noise(bs))
-            img = np.concatenate([o.float().cpu().numpy() for o in imgs])
-            outs.append(img[: bs - pad])
-        return np.concatenate(outs, axis=0)[:n]
+        `batch_size` with length-1 rows.
+
+        Under a torch profiler the call is span `sampler.generate`, tiled
+        by `sampler.launch` (each batch's noise, encode and G enqueued),
+        `sampler.to_host` (each batch's copies to the host, which wait
+        for the device) and `sampler.assemble` (the padding, each batch's
+        concatenation and the last one)."""
+        with span("sampler.generate"):
+            captions = np.asarray(captions, np.int64)
+            cap_lens = np.asarray(cap_lens, np.int64)
+            n = captions.shape[0]
+            bs = self.batch_size
+            outs = []
+            for i in range(0, n, bs):
+                c = captions[i: i + bs]
+                l = cap_lens[i: i + bs]
+                pad = bs - c.shape[0]
+                if pad:
+                    with span("sampler.assemble"):
+                        c = np.concatenate([c, np.zeros((pad, c.shape[1]),
+                                                        c.dtype)])
+                        l = np.concatenate([l, np.ones((pad,), l.dtype)])
+                # every replica's rows launch before the first copy to the
+                # host
+                with span("sampler.launch"):
+                    imgs = self._launch(c, l, self._next_noise(bs))
+                with span("sampler.to_host"):
+                    host = [o.float().cpu().numpy() for o in imgs]
+                with span("sampler.assemble"):
+                    outs.append(np.concatenate(host)[: bs - pad])
+            with span("sampler.assemble"):
+                return np.concatenate(outs, axis=0)[:n]
 
     def warmup(self) -> float:
         """Run the pipeline once on a dummy batch (loads the kernels and
@@ -376,7 +391,10 @@ class RequestCoalescer:
     `max_items` prompts (default the sampler's batch size) or `window_s`
     has passed, runs `generate_tokens` once under the dispatch lock, and
     hands each waiter its slice. A failed dispatch raises its exception in
-    every request of the batch. `dispatches` counts the batches run."""
+    every request of the batch. `dispatches` counts the batches run, and
+    `queue_seconds` sums their requests' waits from `submit` to the
+    dispatch (the dispatch lock taken); under a profiler a request waits
+    in span `serve.queue`."""
 
     _STOP = object()
 
@@ -394,6 +412,7 @@ class RequestCoalescer:
         self._q = queue.Queue()
         self._stopped = False
         self.dispatches = 0
+        self.queue_seconds = 0.0
         self._thread = threading.Thread(target=self._run,
                                         name="request-coalescer",
                                         daemon=True)
@@ -404,12 +423,15 @@ class RequestCoalescer:
 
         if self._stopped:
             raise RuntimeError("coalescer stopped (server shutting down)")
-        slot = {"done": threading.Event(), "images": None, "error": None,
-                "caps": captions, "lens": lens}
-        self._q.put(slot)
+        slot = {"dispatched": threading.Event(), "done": threading.Event(),
+                "images": None, "error": None, "caps": captions,
+                "lens": lens, "queued_at": time.perf_counter()}
+        with span("serve.queue"):
+            self._q.put(slot)
+            dispatched = slot["dispatched"].wait(timeout=600)
         # a first dispatch builds the kernels; a dead dispatcher must
         # still not hold the handler forever
-        if not slot["done"].wait(timeout=600):
+        if not (dispatched and slot["done"].wait(timeout=600)):
             raise RuntimeError("coalescer dispatch timed out")
         if slot["error"] is not None:
             raise slot["error"]
@@ -442,8 +464,12 @@ class RequestCoalescer:
                 caps = np.concatenate([b["caps"] for b in batch])
                 lens = np.concatenate([b["lens"] for b in batch])
                 with self._lock:
+                    at = time.perf_counter()
+                    for b in batch:
+                        b["dispatched"].set()
                     images = self._sampler.generate_tokens(caps, lens)
                 self.dispatches += 1
+                self.queue_seconds += sum(at - b["queued_at"] for b in batch)
                 i = 0
                 for b in batch:
                     b["images"] = images[i: i + len(b["caps"])]
@@ -453,6 +479,7 @@ class RequestCoalescer:
                     b["error"] = e
             finally:
                 for b in batch:
+                    b["dispatched"].set()
                     b["done"].set()
 
     def stop(self, timeout: float = 30.0):
@@ -478,7 +505,11 @@ def make_http_server(sampler: Sampler, host: str = "127.0.0.1",
       GET  /healthz   -> {"status": "ok", "batch_size", "image_size",
                           "epoch", "pinned"}
       GET  /metrics   -> request/shed/error/image/reload counters and
-                         generate latency sums (+ "coalesced_dispatches")
+                         the sums of successful /generate requests'
+                         seconds: in the handler, waiting for their
+                         dispatch ("queue_seconds_total": the dispatch
+                         lock, or the coalescer's queue), and encoding
+                         their images (+ "coalesced_dispatches")
       POST /generate  <- {"prompts": ["a red bird", ...]}
                          or {"captions": [[ids...]], "cap_lens": [...]}
                          + optional "format": "png" (default) | "jpeg",
@@ -537,7 +568,8 @@ def make_http_server(sampler: Sampler, host: str = "127.0.0.1",
     stats_lock = threading.Lock()
     stats = {"requests_total": 0, "generate_ok": 0, "generate_error": 0,
              "shed_total": 0, "images_total": 0, "reloads_total": 0,
-             "generate_seconds_total": 0.0, "last_generate_seconds": 0.0}
+             "generate_seconds_total": 0.0, "last_generate_seconds": 0.0,
+             "queue_seconds_total": 0.0, "encode_seconds_total": 0.0}
     state = {"epoch": epoch, "pinned": False}
     coalescer = (RequestCoalescer(sampler, lock, coalesce_window)
                  if coalesce_window is not None else None)
@@ -603,6 +635,7 @@ def make_http_server(sampler: Sampler, host: str = "127.0.0.1",
                             batch_size=sampler.batch_size)
                 if coalescer is not None:
                     snap["coalesced_dispatches"] = coalescer.dispatches
+                    snap["queue_seconds_total"] = coalescer.queue_seconds
                 return self._send(200, snap)
             self._send(404, {"error": "unknown path"})
 
@@ -720,24 +753,36 @@ def make_http_server(sampler: Sampler, host: str = "127.0.0.1",
             except (ValueError, TypeError) as e:
                 bump(generate_error=1)
                 return self._send(400, {"error": str(e)})
+            queued = 0.0  # the coalescer sums its own queue's waits
             try:
                 if coalescer is not None:
                     images = coalescer.submit(caps, lens)
                 else:
-                    with lock:
+                    t_queue = time.perf_counter()
+                    with span("serve.queue"):
+                        lock.acquire()
+                    queued = time.perf_counter() - t_queue
+                    try:
                         images = sampler.generate_tokens(caps, lens)
+                    finally:
+                        lock.release()
             except Exception as e:  # the server keeps serving; say why
                 traceback.print_exc()
                 bump(generate_error=1)
                 return self._send(500, {"error": f"{type(e).__name__}: {e}"})
-            encoded = encode_images(images, fmt.upper(), quality)
+            t_encode = time.perf_counter()
+            with span("serve.encode"):
+                encoded = encode_images(images, fmt.upper(), quality)
             # request latency: lock wait + pipeline + image encode
-            dt = time.perf_counter() - t0
+            t_end = time.perf_counter()
+            dt = t_end - t0
             with stats_lock:
                 stats["generate_ok"] += 1
                 stats["images_total"] += int(len(images))
                 stats["generate_seconds_total"] += dt
                 stats["last_generate_seconds"] = dt
+                stats["queue_seconds_total"] += queued
+                stats["encode_seconds_total"] += t_end - t_encode
             self._send(200, {"images": encoded, "count": int(len(images)),
                              "format": fmt})
 

@@ -38,6 +38,13 @@ checks the G forward's images, then each phase's loss and gradients (after
 the reduction over ranks, before the NaN guard could hide them), and
 raises `FloatingPointError` naming the phase and the first tensor that
 holds a NaN. It costs one host sync a check, so it is off by default.
+
+Under a torch profiler the step's parts are spans (`utils/profiling.py::
+span`), each timed on the device: `step.g_forward` (the text encoder, the
+noise and G's forward), `step.d_hinge` (phase 1), `step.magp` (phase 2,
+on the steps that run it) and `step.g_hinge` (phase 3, the EMA and the
+metrics). They tile the step; without a profiler each costs one check of
+its flag.
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ import torch
 
 from ..config import GANConfig
 from ..parallel.mesh import Mesh, all_reduce
+from ..utils.profiling import span
 from . import losses
 from .state import TrainState, ema_update
 
@@ -160,77 +168,84 @@ def make_train_step(cfg: GANConfig, mesh: Optional[Mesh] = None,
              images: torch.Tensor, captions: torch.Tensor,
              cap_lens: torch.Tensor,
              noise: Optional[torch.Tensor] = None) -> Metrics:
-        g, d = state.generator, state.discriminator
-        g_names, g_params = zip(*g.named_parameters())
-        d_names, d_params = zip(*d.named_parameters())
-        batch = images.shape[0]
+        dev = images.device
+        with span("step.g_forward", dev):
+            g, d = state.generator, state.discriminator
+            g_names, g_params = zip(*g.named_parameters())
+            d_names, d_params = zip(*d.named_parameters())
+            batch = images.shape[0]
 
-        # the global batch under data parallelism, else None (plain means)
-        count = None if mesh is None else batch * mesh.world
-        with torch.no_grad():  # frozen text encoder (`model.py:171`)
-            sents = text_encoder(captions, cap_lens).float()
-        if noise is None:
-            noise = torch.randn((count or batch, gen_cfg.latent_dim),
-                                generator=state.rng, device=images.device)
-            if mesh is not None:  # this rank's rows of the global draw
-                noise = noise[mesh.rank * batch:(mesh.rank + 1) * batch]
-        next_sent = None if mesh is None else _next_sentence(mesh, sents)
-        images_c = images.to(cdtype)
-        sents_c = sents.to(cdtype)
+            # the global batch under data parallelism, else None (plain means)
+            count = None if mesh is None else batch * mesh.world
+            with torch.no_grad():  # frozen text encoder (`model.py:171`)
+                sents = text_encoder(captions, cap_lens).float()
+            if noise is None:
+                noise = torch.randn((count or batch, gen_cfg.latent_dim),
+                                    generator=state.rng, device=dev)
+                if mesh is not None:  # this rank's rows of the global draw
+                    noise = noise[mesh.rank * batch:(mesh.rank + 1) * batch]
+            next_sent = None if mesh is None else _next_sentence(mesh, sents)
+            images_c = images.to(cdtype)
+            sents_c = sents.to(cdtype)
 
-        # One G forward for the whole step; its graph is kept for phase 3.
-        fake = g(noise.to(cdtype), sents_c)
-        fake_detached = fake.detach()
-        if debug_nans:
-            _raise_on_nan("G forward", [("fake images", fake_detached)])
+            # One G forward for the whole step; its graph is kept for phase 3.
+            fake = g(noise.to(cdtype), sents_c)
+            fake_detached = fake.detach()
+            if debug_nans:
+                _raise_on_nan("G forward", [("fake images", fake_detached)])
 
         # ---- Phase 1: D hinge (adversarial + mismatch) ----
-        d_loss = losses.d_hinge_loss(
-            d, images_c, fake_detached, sents_c, count,
-            None if next_sent is None else next_sent.to(cdtype)).float()
-        d_grads, (d_loss,) = reduce(_grads(d_loss, d_params), d_loss)
-        check("phase 1 (D hinge)", "d_loss", d_loss, d_grads, d_names)
-        d_loss, d_grads = guard(d_loss, d_grads, state.rng)
-        state.d_opt.step(d_grads)
+        with span("step.d_hinge", dev):
+            d_loss = losses.d_hinge_loss(
+                d, images_c, fake_detached, sents_c, count,
+                None if next_sent is None else next_sent.to(cdtype)).float()
+            d_grads, (d_loss,) = reduce(_grads(d_loss, d_params), d_loss)
+            check("phase 1 (D hinge)", "d_loss", d_loss, d_grads, d_names)
+            d_loss, d_grads = guard(d_loss, d_grads, state.rng)
+            state.d_opt.step(d_grads)
 
         # ---- Phase 2: MA-GP on the post-phase-1 D (`model.py:200-210`) ----
         gp_active = state.step % k_interval == 0
         if gp_active:
-            gp_loss = losses.ma_gradient_penalty(
-                d, images.to(gp_dtype), sents.to(gp_dtype), gp_cfg, count)
-            gp_grads, (gp_loss,) = reduce(_grads(gp_loss, d_params), gp_loss)
-            check("phase 2 (MA-GP)", "gp_loss", gp_loss, gp_grads, d_names)
-            gp_loss, gp_grads = guard(gp_loss, gp_grads, state.rng)
-            state.d_opt.step(gp_grads)
-        else:
-            gp_loss = torch.zeros((), device=images.device)
+            with span("step.magp", dev):
+                gp_loss = losses.ma_gradient_penalty(
+                    d, images.to(gp_dtype), sents.to(gp_dtype), gp_cfg,
+                    count)
+                gp_grads, (gp_loss,) = reduce(_grads(gp_loss, d_params),
+                                              gp_loss)
+                check("phase 2 (MA-GP)", "gp_loss", gp_loss, gp_grads,
+                      d_names)
+                gp_loss, gp_grads = guard(gp_loss, gp_grads, state.rng)
+                state.d_opt.step(gp_grads)
 
         # ---- Phase 3: G step against the post-phase-2 D ----
-        fake_in = fake_detached.requires_grad_(True)
-        g_adv = losses.g_hinge_loss(d, fake_in, sents_c, count).float()
-        txtimg = losses.damsm_cosine_loss(fake_in.float(), sents,
-                                          count).float()
-        g_total = g_adv + loss_cfg.damsm_weight * txtimg
-        (d_fake,) = torch.autograd.grad(g_total, fake_in)
-        g_grads, (g_total, g_adv, txtimg) = reduce(
-            _grads(fake, g_params, d_fake.to(fake.dtype)),
-            g_total, g_adv, txtimg)
-        check("phase 3 (G hinge)", "g_loss", g_total, g_grads, g_names)
-        if loss_cfg.nan_guard:
-            # keyed on the loss actually differentiated (`step.py:196-201`)
-            g_grads = losses.zero_grads_if_nonfinite(g_total, g_grads)
-            g_adv = losses.nan_guard_loss(g_adv, state.rng)
-        state.g_opt.step(g_grads)
-        ema_update(state.g_ema, g, ema_decay)
-        state.step += 1
+        with span("step.g_hinge", dev):
+            if not gp_active:
+                gp_loss = torch.zeros((), device=dev)
+            fake_in = fake_detached.requires_grad_(True)
+            g_adv = losses.g_hinge_loss(d, fake_in, sents_c, count).float()
+            txtimg = losses.damsm_cosine_loss(fake_in.float(), sents,
+                                              count).float()
+            g_total = g_adv + loss_cfg.damsm_weight * txtimg
+            (d_fake,) = torch.autograd.grad(g_total, fake_in)
+            g_grads, (g_total, g_adv, txtimg) = reduce(
+                _grads(fake, g_params, d_fake.to(fake.dtype)),
+                g_total, g_adv, txtimg)
+            check("phase 3 (G hinge)", "g_loss", g_total, g_grads, g_names)
+            if loss_cfg.nan_guard:
+                # keyed on the loss actually differentiated (`step.py:196-201`)
+                g_grads = losses.zero_grads_if_nonfinite(g_total, g_grads)
+                g_adv = losses.nan_guard_loss(g_adv, state.rng)
+            state.g_opt.step(g_grads)
+            ema_update(state.g_ema, g, ema_decay)
+            state.step += 1
 
-        return {
-            "d_loss": d_loss.detach(),
-            "d_gp_loss": gp_loss.detach() / k_interval,
-            "d_gp_active": torch.full((), float(gp_active),
-                                      device=images.device),
-            "g_loss": g_adv.detach(),
-            "txtimg_loss": txtimg.detach(),
-        }
+            return {
+                "d_loss": d_loss.detach(),
+                "d_gp_loss": gp_loss.detach() / k_interval,
+                "d_gp_active": torch.full((), float(gp_active), device=dev),
+                "g_loss": g_adv.detach(),
+                "txtimg_loss": txtimg.detach(),
+            }
 
     return step

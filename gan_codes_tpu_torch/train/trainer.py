@@ -36,7 +36,10 @@ Where the time goes is kept in `self.timers`, the device time of each step
 and of each host-to-device copy (CUDA events on a card), and in
 `self.host_seconds`, the host's seconds in `train_epoch` (which ends in the
 epoch's one device sync), waiting for the loader inside it, evaluating and
-checkpointing.
+checkpointing. Under a torch profiler two spans (`utils/profiling.py::
+span`) mark the epoch loop's parts: `train.stage` (the wait for the
+loader and the upload's enqueueing, on the host) and `train.step` (the step
+function, on the host and the device).
 """
 from __future__ import annotations
 
@@ -55,7 +58,7 @@ from ..parallel.dp import replicate
 from ..parallel.mesh import Mesh
 from ..utils import image_io
 from ..utils.device import serving_device
-from ..utils.profiling import MetricsLogger, StepTimer
+from ..utils.profiling import MetricsLogger, StepTimer, span
 from ..utils.seeding import fold_seed
 from .checkpoint import CheckpointManager, empty_histories
 from .state import TrainState, create_train_state
@@ -158,18 +161,19 @@ class Trainer:
         """The loader's next batch on the device, or None at its end:
         (images, captions, cap_lens, ready). With the copy stream the
         upload runs there and `ready` is the event that ends it."""
-        t0 = time.perf_counter()
-        batch = next(batches, None)
-        self.host_seconds["data_wait"] += time.perf_counter() - t0
-        if batch is None:
-            return None
-        stream = self._copy_stream
-        with torch.cuda.stream(stream) if stream is not None \
-                else contextlib.nullcontext():
-            with self.timers["h2d"]:  # its events on the upload's stream
-                staged = self._device_batch(batch)
-            ready = None if stream is None else stream.record_event()
-        return (*staged, ready)
+        with span("train.stage"):
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            self.host_seconds["data_wait"] += time.perf_counter() - t0
+            if batch is None:
+                return None
+            stream = self._copy_stream
+            with torch.cuda.stream(stream) if stream is not None \
+                    else contextlib.nullcontext():
+                with self.timers["h2d"]:  # its events on the upload's stream
+                    staged = self._device_batch(batch)
+                ready = None if stream is None else stream.record_event()
+            return (*staged, ready)
 
     def _await(self, staged) -> Tuple[torch.Tensor, ...]:
         """The staged batch for the step's stream: it waits for the
@@ -194,7 +198,7 @@ class Trainer:
         while staged is not None:
             current = self._await(staged)
             staged = self._stage(batches)
-            with self.timers["step"]:
+            with self.timers["step"], span("train.step", self.device):
                 metrics = self._step_fn(self.state, self.text_encoder,
                                         *current)
             for k, v in metrics.items():

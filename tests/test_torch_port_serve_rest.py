@@ -158,6 +158,8 @@ class TestReload:
             assert m["generate_ok"] == 2 and m["images_total"] == 2
             assert m["reloads_total"] == 2 and m["epoch"] == 5
             assert m["generate_seconds_total"] > 0
+            for k in ("queue_seconds_total", "encode_seconds_total"):
+                assert 0 < m[k] <= m["generate_seconds_total"], k
             assert m["requests_total"] >= 8
         finally:
             _stop(server)
@@ -409,6 +411,9 @@ class TestCoalescer:
             m = _get(url, "/metrics")
             assert m["coalesced_dispatches"] == calls["n"]
             assert m["generate_ok"] == 4 and m["images_total"] == 4
+            # each request waited in the queue for its batch's window
+            for k in ("queue_seconds_total", "encode_seconds_total"):
+                assert 0 < m[k] <= m["generate_seconds_total"], k
         finally:
             _stop(server)
 

@@ -521,8 +521,13 @@ class TestUtils:
 
     def test_trace_writes_a_chrome_trace(self, tmp_path):
         with profiling.trace(str(tmp_path / "t")):
-            torch.ones(8).sum()
+            with profiling.span("t.block"):
+                torch.ones(8).sum()
         assert os.path.getsize(tmp_path / "t" / "trace.json") > 0
+        with open(tmp_path / "t" / "spans.json") as f:
+            spans = json.load(f)
+        assert spans["spans"]["t.block"]["count"] == 1
+        assert "(none)" in spans["idle_by_span"]
 
     def test_image_helpers_match_jax(self, tmp_path):
         code2word = {0: "<end>", 2: "red", 3: "bird"}
