@@ -78,7 +78,11 @@ class Sampler:
     generator's weights at the serving dtype onto the device,
     `latest_generator_epoch()
     -> Optional[int]` is the cheap newest-epoch probe of the `--watch`
-    poller."""
+    poller.
+
+    `host_copies` counts the batches `generate_tokens` has copied to the
+    host, by route: "pinned" (by DMA into pinned memory, on a card) or
+    "pageable" (any other)."""
 
     reload_generator = None
     latest_generator_epoch = None
@@ -114,6 +118,7 @@ class Sampler:
                          for dev, (g, te) in zip(devs, mods)]
         _, self.generator, self.text_encoder = self.replicas[0]
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
+        self.host_copies = {"pinned": 0, "pageable": 0}
 
     @property
     def dtype(self) -> torch.dtype:
@@ -182,20 +187,38 @@ class Sampler:
     def generate_tokens(self, captions: np.ndarray,
                         cap_lens: np.ndarray) -> np.ndarray:
         """Token batch [N, T] + lengths [N] -> float32 images
-        [N, H, W, 3] in [-1, 1]. N may be anything: batches are padded to
-        `batch_size` with length-1 rows.
+        [N, H, W, 3] in [-1, 1], a C-contiguous, writable array of the
+        caller's own (a later call never writes into it). N may be
+        anything: batches are padded to `batch_size` with length-1 rows.
+
+        Each batch's images are copied once, into their rows of the
+        returned array, and the padding rows never leave the device. On a
+        card the array is pinned host memory (from torch's caching host
+        allocator, so its pages are pinned once and reused after the
+        array is freed): each replica's rows are copied into it by DMA on
+        that replica's current stream without waiting, so the host
+        launches the next batch while this one computes and copies, and
+        the streams are synchronised once, after the last batch. On the
+        CPU each batch is copied into its rows. `host_copies` counts
+        the batches by the route their copy took, "pinned" or "pageable".
 
         Under a torch profiler the call is span `sampler.generate`, tiled
-        by `sampler.launch` (each batch's noise, encode and G enqueued),
-        `sampler.to_host` (each batch's copies to the host, which wait
-        for the device) and `sampler.assemble` (the padding, each batch's
-        concatenation and the last one)."""
+        by `sampler.assemble` (the output's allocation and the padding),
+        `sampler.launch` (each batch's noise, encode and G enqueued) and
+        `sampler.to_host` (each batch's copies enqueued, then the wait
+        for the devices)."""
         with span("sampler.generate"):
             captions = np.asarray(captions, np.int64)
             cap_lens = np.asarray(cap_lens, np.int64)
             n = captions.shape[0]
             bs = self.batch_size
-            outs = []
+            k = bs // len(self.replicas)
+            size = self.cfg.generator.image_size
+            cuda = self.device.type == "cuda"
+            with span("sampler.assemble"):
+                host = torch.empty((n, size, size, 3), dtype=torch.float32,
+                                   pin_memory=cuda)
+            pinned = cuda and host.is_pinned()
             for i in range(0, n, bs):
                 c = captions[i: i + bs]
                 l = cap_lens[i: i + bs]
@@ -210,11 +233,20 @@ class Sampler:
                 with span("sampler.launch"):
                     imgs = self._launch(c, l, self._next_noise(bs))
                 with span("sampler.to_host"):
-                    host = [o.float().cpu().numpy() for o in imgs]
-                with span("sampler.assemble"):
-                    outs.append(np.concatenate(host)[: bs - pad])
-            with span("sampler.assemble"):
-                return np.concatenate(outs, axis=0)[:n]
+                    for j, o in enumerate(imgs):
+                        lo = i + j * k
+                        keep = min(k, n - lo)
+                        if keep <= 0:
+                            break
+                        host[lo: lo + keep].copy_(o.float()[:keep],
+                                                  non_blocking=pinned)
+                self.host_copies["pinned" if pinned else "pageable"] += 1
+            with span("sampler.to_host"):
+                if cuda:
+                    for dev in dict.fromkeys(d for d, _, _ in
+                                             self.replicas):
+                        torch.cuda.current_stream(dev).synchronize()
+            return host.numpy()
 
     def warmup(self) -> float:
         """Run the pipeline once on a dummy batch (loads the kernels and
@@ -509,7 +541,9 @@ def make_http_server(sampler: Sampler, host: str = "127.0.0.1",
                          seconds: in the handler, waiting for their
                          dispatch ("queue_seconds_total": the dispatch
                          lock, or the coalescer's queue), and encoding
-                         their images (+ "coalesced_dispatches")
+                         their images (+ "coalesced_dispatches");
+                         "pinned_batches_total": the sampler's batches
+                         copied by DMA into pinned host memory
       POST /generate  <- {"prompts": ["a red bird", ...]}
                          or {"captions": [[ids...]], "cap_lens": [...]}
                          + optional "format": "png" (default) | "jpeg",
@@ -632,7 +666,9 @@ def make_http_server(sampler: Sampler, host: str = "127.0.0.1",
                     snap = dict(stats)
                 snap.update(epoch=state["epoch"], pinned=state["pinned"],
                             max_inflight=max_inflight,
-                            batch_size=sampler.batch_size)
+                            batch_size=sampler.batch_size,
+                            pinned_batches_total=sampler.host_copies[
+                                "pinned"])
                 if coalescer is not None:
                     snap["coalesced_dispatches"] = coalescer.dispatches
                     snap["queue_seconds_total"] = coalescer.queue_seconds

@@ -160,6 +160,10 @@ class TestReload:
             assert m["generate_seconds_total"] > 0
             for k in ("queue_seconds_total", "encode_seconds_total"):
                 assert 0 < m[k] <= m["generate_seconds_total"], k
+            # batches copied by DMA into pinned memory: a card's alone
+            assert m["pinned_batches_total"] == sampler.host_copies["pinned"]
+            assert (m["pinned_batches_total"] > 0) == (
+                sampler.device.type == "cuda")
             assert m["requests_total"] >= 8
         finally:
             _stop(server)
@@ -414,6 +418,9 @@ class TestCoalescer:
             # each request waited in the queue for its batch's window
             for k in ("queue_seconds_total", "encode_seconds_total"):
                 assert 0 < m[k] <= m["generate_seconds_total"], k
+            assert m["pinned_batches_total"] == sampler.host_copies["pinned"]
+            assert (m["pinned_batches_total"] > 0) == (
+                sampler.device.type == "cuda")
         finally:
             _stop(server)
 

@@ -164,9 +164,10 @@ def _sampler():
 
 
 def test_sampler_spans_tile_generate():
-    """Six captions at batch 4: two launches and copies, the padding, two
-    batch concatenations and the last, all inside `sampler.generate`; the
-    images are those of a call without a profiler."""
+    """Six captions at batch 4: the output's allocation, two launches and
+    two batches' copies enqueued, the padding, the final wait, all inside
+    `sampler.generate`; the images are those of a call without a
+    profiler."""
     rng = np.random.default_rng(1)
     caps = rng.integers(1, 20, (6, 6))
     lens = rng.integers(1, 7, (6,))
@@ -176,7 +177,7 @@ def test_sampler_spans_tile_generate():
     assert got.dtype == want.dtype and np.array_equal(got, want)
     s = profiling.span_summary()
     assert s["sampler.generate"]["count"] == 1
-    assert [s[n]["count"] for n in SAMPLER_PARTS] == [2, 2, 4]
+    assert [s[n]["count"] for n in SAMPLER_PARTS] == [2, 3, 2]
     (call,) = _records("sampler.generate")
     for name in SAMPLER_PARTS:
         assert all(r.parent is call for r in _records(name))
