@@ -34,6 +34,12 @@ def _log2_int(x: int) -> int:
     return l
 
 
+def _from_dict(cls, sub: Optional[dict]):
+    """`cls` from the known keys of one `dataclasses.asdict` group."""
+    known = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in (sub or {}).items() if k in known})
+
+
 @dataclasses.dataclass(frozen=True)
 class GeneratorConfig:
     """One-stage text-to-image generator (reference
@@ -207,10 +213,7 @@ class GANConfig:
     def from_dict(d: dict) -> "GANConfig":
         """Inverse of `dataclasses.asdict`; unknown keys are ignored and
         missing keys take the field default."""
-        def build(cls, sub: Optional[dict]):
-            known = {f.name for f in dataclasses.fields(cls)}
-            return cls(**{k: v for k, v in (sub or {}).items() if k in known})
-
+        build = _from_dict
         return GANConfig(
             generator=build(GeneratorConfig, d.get("generator")),
             discriminator=build(DiscriminatorConfig, d.get("discriminator")),
@@ -242,3 +245,170 @@ class GANConfig:
             else TrainConfig(),
             data=DataConfig(image_size=image_size),
         )
+
+
+# -- GALIP (Tao et al., CVPR 2023) --------------------------------------------
+# A second architecture, with a config of its own: DF-GAN's `GANConfig`
+# stays field for field the JAX package's. `GALIPConfig` keeps the same
+# top-level names (generator, discriminator, text_encoder, optim, loss,
+# train, data), so the trainer reads both alike, and carries
+# `architecture = "galip"`, which `config_from_dict` dispatches on.
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPConfig:
+    """CLIP ViT-B/32 (Radford et al. 2021, openai/CLIP `clip/model.py`):
+    the frozen backbone of GALIP, with OpenAI's `build_model` fields; the
+    visual tower's heads are 64 wide, as OpenAI's rule sets them."""
+
+    embed_dim: int = 512
+    image_resolution: int = 224
+    vision_layers: int = 12
+    vision_width: int = 768
+    vision_patch_size: int = 32
+    context_length: int = 77
+    vocab_size: int = 49408
+    transformer_width: int = 512
+    transformer_heads: int = 8
+    transformer_layers: int = 12
+
+    @property
+    def vision_heads(self) -> int:
+        return max(1, self.vision_width // 64)
+
+    @property
+    def grid(self) -> int:
+        return self.image_resolution // self.vision_patch_size
+
+
+@dataclasses.dataclass(frozen=True)
+class GALIPGeneratorConfig:
+    """GALIP's NetG (`models/GALIP.py`, `cfg/bird.yml`): `fc_code` to a
+    code map of `code_size`^2 x `code_ch`, the CLIP adapter (`n_mblocks`
+    M_Blocks through `mid_ch`, `conv_fuse`, the mapper with `n_prompts`
+    prompt tokens in visual layers 1..n_prompts, `conv` of f + 0.1 x the
+    mapped map), then G_Blocks
+    on the ladder nf * min(2^i, 8) reversed, the last at `image_size`."""
+
+    n_channels: int = 64
+    latent_dim: int = 100
+    sentence_dim: int = 512
+    image_size: int = 224
+    code_ch: int = 64
+    mid_ch: int = 32
+    n_mblocks: int = 4
+    n_prompts: int = 8
+
+    @property
+    def cond_dim(self) -> int:
+        return self.latent_dim + self.sentence_dim
+
+    @property
+    def block_channels(self) -> Tuple[Tuple[int, int], ...]:
+        """(in, out) of each G_Block (GALIP's `get_G_in_out_chs`)."""
+        n = int(math.log2(self.image_size)) - 1
+        chans = [self.n_channels * min(2 ** i, 8) for i in range(n)][::-1]
+        return tuple(zip(chans[:-1], chans[1:]))
+
+    @property
+    def block_sizes(self) -> Tuple[int, ...]:
+        """The output size of each G_Block: 8, 16, ... then image_size."""
+        n = len(self.block_channels)
+        return tuple(8 * 2 ** i for i in range(n - 1)) + (self.image_size,)
+
+
+@dataclasses.dataclass(frozen=True)
+class GALIPDiscriminatorConfig:
+    """GALIP's NetD on the CLIP visual tower's local features after
+    `local_layers`, and NetC: NetD ends at 8 x n_channels, NetC's hidden
+    conv has 2 x n_channels."""
+
+    n_channels: int = 64
+    sentence_dim: int = 512
+    local_layers: Tuple[int, ...] = (1, 4, 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class GALIPOptimConfig:
+    """Adam for G and for D + C (GALIP's `main.py`): no gradient clip."""
+
+    g_lr: float = 1e-4
+    d_lr: float = 4e-4
+    beta1: float = 0.0
+    beta2: float = 0.9
+    eps: float = 1e-8
+
+
+@dataclasses.dataclass(frozen=True)
+class GALIPLossConfig:
+    """GALIP's losses (`lib/modules.py`): D's hinge with the rolled
+    mismatch and the MA-GP on the CLIP features (coefficient 2, power 6,
+    no clamp), G's hinge less `sim_weight` x the CLIP cosine."""
+
+    gp_coef: float = 2.0
+    gp_power: int = 6
+    sim_weight: float = 4.0
+    nan_guard: bool = True
+
+
+SOT_TOKEN, EOT_TOKEN = 49406, 49407  # CLIP's start- and end-of-text ids
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPDataConfig(DataConfig):
+    """`DataConfig` with CLIP's token framing: each caption's ids (CLIP
+    BPE ids in `captions.pickle`) framed as start-of-text (`SOT_TOKEN`),
+    at most max_caption_len - 2 ids, end-of-text (`EOT_TOKEN`), then zeros
+    to max_caption_len."""
+
+    image_size: int = 224
+    max_caption_len: int = 77
+
+
+@dataclasses.dataclass(frozen=True)
+class GALIPConfig:
+    """GALIP on CUB birds (`cfg/bird.yml`) with a CLIP ViT-B/32."""
+
+    architecture: str = "galip"
+    generator: GALIPGeneratorConfig = dataclasses.field(
+        default_factory=GALIPGeneratorConfig)
+    discriminator: GALIPDiscriminatorConfig = dataclasses.field(
+        default_factory=GALIPDiscriminatorConfig)
+    text_encoder: CLIPConfig = dataclasses.field(default_factory=CLIPConfig)
+    optim: GALIPOptimConfig = dataclasses.field(
+        default_factory=GALIPOptimConfig)
+    loss: GALIPLossConfig = dataclasses.field(default_factory=GALIPLossConfig)
+    train: TrainConfig = dataclasses.field(
+        default_factory=lambda: TrainConfig(batch_size=64))
+    data: CLIPDataConfig = dataclasses.field(default_factory=CLIPDataConfig)
+
+    @staticmethod
+    def from_dict(d: dict) -> "GALIPConfig":
+        """Inverse of `dataclasses.asdict` (unknown keys ignored, missing
+        keys at their defaults)."""
+        build = _from_dict
+        d = dict(d, discriminator=dict(d.get("discriminator") or {}))
+        if "local_layers" in d["discriminator"]:  # a JSON list
+            d["discriminator"]["local_layers"] = tuple(
+                d["discriminator"]["local_layers"])
+        return GALIPConfig(
+            generator=build(GALIPGeneratorConfig, d.get("generator")),
+            discriminator=build(GALIPDiscriminatorConfig,
+                                d.get("discriminator")),
+            text_encoder=build(CLIPConfig, d.get("text_encoder")),
+            optim=build(GALIPOptimConfig, d.get("optim")),
+            loss=build(GALIPLossConfig, d.get("loss")),
+            train=build(TrainConfig, d.get("train")),
+            data=build(CLIPDataConfig, d.get("data")))
+
+
+def is_galip(cfg) -> bool:
+    return getattr(cfg, "architecture", "dfgan") == "galip"
+
+
+def config_from_dict(d: dict):
+    """A `GALIPConfig` where the dictionary says `"architecture":
+    "galip"`, else a `GANConfig` (what every DF-GAN config.json holds)."""
+    if d.get("architecture") == "galip":
+        return GALIPConfig.from_dict(d)
+    return GANConfig.from_dict(d)

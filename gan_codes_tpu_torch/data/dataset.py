@@ -9,7 +9,8 @@ Capability parity with DFGANDataset (`src/objects/dataset.py:15-144`):
   * per item: bbox-centered crop with radius r = 0.75 * max(bw, bh) clamped to
     the image, resize-shorter-side to imsize*76/64 -> random crop -> random
     horizontal flip, a random 1-of-10 caption padded/truncated to 18 tokens
-    (random *sorted* subsample when longer).
+    (random *sorted* subsample when longer); with a `CLIPDataConfig`
+    (GALIP) CLIP's framing instead, to 77 tokens (`frame_clip`).
 
 Differences from the reference, as in the JAX package:
   * images come out as uint8 HWC; the trainer normalizes them to [-1, 1]
@@ -27,7 +28,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 from PIL import Image
 
-from ..config import DataConfig
+from ..config import EOT_TOKEN, SOT_TOKEN, CLIPDataConfig, DataConfig
 
 
 def load_bbox_table(bbox_path: str, images_path: str) -> Dict[str, List[int]]:
@@ -44,6 +45,19 @@ def load_bbox_table(bbox_path: str, images_path: str) -> Dict[str, List[int]]:
             if len(parts) >= 2:
                 names.append(parts[1])
     return {name[:-4]: bboxes[i].tolist() for i, name in enumerate(names)}
+
+
+def frame_clip(ids: np.ndarray, context: int, sot: int, eot: int
+               ) -> Tuple[np.ndarray, int]:
+    """CLIP's framing of one caption's BPE ids (a `CLIPDataConfig`):
+    start-of-text, the first context - 2 ids, end-of-text, zeros to
+    `context` (as `clip.tokenize(truncate=True)` frames a long caption);
+    returns (ids [context], the framed length). The text tower reads the
+    sentence at the end-of-text token, the largest id."""
+    ids = np.asarray(ids, dtype=np.int64)[:context - 2]
+    out = np.zeros((context,), dtype=np.int64)
+    out[0], out[1:len(ids) + 1], out[len(ids) + 1] = sot, ids, eot
+    return out, len(ids) + 2
 
 
 class CUBDataset:
@@ -124,6 +138,8 @@ class CUBDataset:
                         rng: np.random.Generator) -> Tuple[np.ndarray, int]:
         caption = np.asarray(self.captions[caption_idx], dtype=np.int64)
         max_len = self.cfg.max_caption_len
+        if isinstance(self.cfg, CLIPDataConfig):
+            return frame_clip(caption, max_len, SOT_TOKEN, EOT_TOKEN)
         padded = np.zeros((max_len,), dtype=np.int64)
         if len(caption) <= max_len:
             padded[: len(caption)] = caption

@@ -203,3 +203,12 @@ def l2_normalize(x: torch.Tensor, dim: int = -1,
                  eps: float = 1e-12) -> torch.Tensor:
     """F.normalize semantics: x / max(||x||_2, eps) along `dim`."""
     return F.normalize(x, p=2.0, dim=dim, eps=eps)
+
+
+def resize_nearest(x: torch.Tensor, size: int) -> torch.Tensor:
+    """F.interpolate(size=(size, size)) (mode 'nearest') on NHWC: output
+    pixel i reads input pixel floor(i * in / out), as PyTorch's nearest
+    picks it (GALIP's G_Blocks resize 7 -> 8 and 64 -> 224)."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(size, size),
+                      mode="nearest")
+    return y.permute(0, 2, 3, 1).contiguous()

@@ -216,15 +216,15 @@ class CheckpointManager:
         return bool(broadcast(self.mesh, flag).item())
 
     def load_config(self):
-        """The `GANConfig` this checkpoint was trained with, or None when
-        the directory has no config.json."""
+        """The `GANConfig` (or `GALIPConfig`) this checkpoint was trained
+        with, or None when the directory has no config.json."""
         path = self._path("config.json")
         if not os.path.exists(path):
             return None
-        from ..config import GANConfig
+        from ..config import config_from_dict
 
         with open(path) as f:
-            return GANConfig.from_dict(json.load(f))
+            return config_from_dict(json.load(f))
 
     def verify_config(self, config: Any) -> None:
         """Fail loudly if `config` differs semantically from the config the

@@ -15,11 +15,11 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Iterable, List, Sequence, Tuple
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..config import GANConfig
+from ..config import GANConfig, is_galip
 from ..models.discriminator import Discriminator
 from ..models.generator import Generator
 from ..utils.device import serving_device
@@ -41,10 +41,12 @@ class ClipAdam:
     """optax.chain(clip_by_global_norm(max_norm), adam(lr, b1, b2, eps))
     over a fixed list of parameters. `step(grads)` clips the gradients in
     place, leaves them as the parameters' `.grad`, and takes one Adam step
-    (torch's Adam: the same update as optax's, bias corrections included)."""
+    (torch's Adam: the same update as optax's, bias corrections included).
+    `max_norm` None: Adam alone (GALIP clips nothing)."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float,
-                 betas: Tuple[float, float], eps: float, max_norm: float):
+                 betas: Tuple[float, float], eps: float,
+                 max_norm: Optional[float]):
         self.params: List[torch.nn.Parameter] = list(params)
         self.max_norm = max_norm
         self.adam = torch.optim.Adam(self.params, lr=lr, betas=betas,
@@ -53,7 +55,8 @@ class ClipAdam:
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         grads = list(grads)
-        clip_by_global_norm(grads, self.max_norm)
+        if self.max_norm is not None:
+            clip_by_global_norm(grads, self.max_norm)
         for p, g in zip(self.params, grads):
             p.grad = g
         self.adam.step()
@@ -66,9 +69,9 @@ def make_optimizers(cfg: GANConfig, generator: Generator,
     o = cfg.optim
     betas = (o.beta1, o.beta2)
     return (ClipAdam(generator.parameters(), o.g_lr, betas, o.eps,
-                     o.grad_clip_g),
+                     getattr(o, "grad_clip_g", None)),
             ClipAdam(discriminator.parameters(), o.d_lr, betas, o.eps,
-                     o.grad_clip_d))
+                     getattr(o, "grad_clip_d", None)))
 
 
 @dataclasses.dataclass
@@ -80,25 +83,45 @@ class TrainState:
     g_opt: ClipAdam
     d_opt: ClipAdam
     rng: torch.Generator         # noise and NaN-guard draws of the step
+    clip: Optional[torch.nn.Module] = None  # GALIP's frozen CLIP
 
 
 def create_train_state(cfg: GANConfig, seed: int,
-                       device: str | torch.device = "cuda") -> TrainState:
+                       device: str | torch.device = "cuda",
+                       clip: Optional[torch.nn.Module] = None
+                       ) -> TrainState:
     """Seeded G, D (torch's default inits, the distributions the JAX
     package's inits reproduce), a copy of G for the EMA, both optimizers
     and the step's generator, on `device` (CUDA unless the caller asks for
-    the CPU; on CUDA, TF32 is turned off so fp32 trains in fp32)."""
+    the CPU; on CUDA, TF32 is turned off so fp32 trains in fp32).
+
+    A `GALIPConfig` builds GALIP's NetG and NetD + NetC
+    (`models/galip.py`) around `clip`, the frozen CLIP
+    (`models/clip.py`; seeded at random when not given), which the state
+    holds and which G's mapper and the EMA copy share."""
     dev = serving_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        g = Generator(cfg.generator)
-        d = Discriminator(cfg.discriminator)
+        if is_galip(cfg):
+            from ..models import galip
+            from ..models.clip import CLIP
+
+            clip = CLIP(cfg.text_encoder) if clip is None else clip
+            g, d = galip.build(cfg, clip)
+        else:
+            g = Generator(cfg.generator)
+            d = Discriminator(cfg.discriminator)
     g, d = g.to(dev), d.to(dev)
+    memo = {}
+    if clip is not None:
+        clip = clip.to(dev).eval().requires_grad_(False)
+        memo[id(clip)] = clip  # the EMA's G shares the frozen CLIP
     g_opt, d_opt = make_optimizers(cfg, g, d)
-    g_ema = copy.deepcopy(g).requires_grad_(False)
+    g_ema = copy.deepcopy(g, memo).requires_grad_(False)
     return TrainState(step=0, generator=g, discriminator=d, g_ema=g_ema,
                       g_opt=g_opt, d_opt=d_opt,
-                      rng=torch.Generator(device=dev).manual_seed(seed))
+                      rng=torch.Generator(device=dev).manual_seed(seed),
+                      clip=clip)
 
 
 @torch.no_grad()

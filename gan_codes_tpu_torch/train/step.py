@@ -53,7 +53,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from ..config import GANConfig
+from ..config import GANConfig, is_galip
 from ..parallel.mesh import Mesh, all_reduce
 from ..utils.profiling import span
 from . import losses
@@ -78,23 +78,26 @@ def _sum_over_ranks(mesh: Mesh, grads: List[torch.Tensor],
     flat float32 buffer); returns (grads, terms), the terms detached."""
     flat = torch.cat([g.reshape(-1) for g in grads]
                      + [t.detach().float().reshape(1) for t in terms])
-    all_reduce(mesh, flat)
+    with span("dp.all_reduce", flat.device):
+        all_reduce(mesh, flat)
     parts = flat.split([g.numel() for g in grads] + [1] * len(terms))
     return ([p.view_as(g) for p, g in zip(parts, grads)],
             [p.reshape(()) for p in parts[len(grads):]])
 
 
-def _next_sentence(mesh: Mesh, sents: torch.Tensor
+def _next_sentence(mesh: Mesh, sents: torch.Tensor, wrap: bool = False
                    ) -> Optional[torch.Tensor]:
     """The next rank's first sentence embed [1, D] (None on the last
-    rank): each rank writes its first row into a zeroed [world, D] buffer,
-    summed over the ranks."""
+    rank, or with `wrap` rank 0's): each rank writes its first row into a
+    zeroed [world, D] buffer, summed over the ranks."""
     rows = torch.zeros((mesh.world, sents.shape[1]), dtype=sents.dtype,
                        device=sents.device)
     rows[mesh.rank] = sents[0]
     all_reduce(mesh, rows)
-    return rows[mesh.rank + 1:mesh.rank + 2] \
-        if mesh.rank + 1 < mesh.world else None
+    nxt = mesh.rank + 1
+    if wrap:
+        nxt %= mesh.world
+    return rows[nxt:nxt + 1] if nxt < mesh.world else None
 
 
 def _raise_on_nan(phase: str, named) -> None:
@@ -106,6 +109,30 @@ def _raise_on_nan(phase: str, named) -> None:
         bad = names[int(flags.nonzero()[0])]
         raise FloatingPointError(f"NaN in the train step's {phase}: {bad} "
                                  "(--debug-nans)")
+
+
+def _phase_tools(loss_cfg, mesh: Optional[Mesh], debug_nans: bool):
+    """What every phase of a step does with its loss and gradients:
+    `reduce` (the sum over the ranks), `guard` (the NaN guard) and `check`
+    (`debug_nans`)."""
+    def reduce(grads, *terms):
+        if mesh is None:
+            return grads, terms
+        return _sum_over_ranks(mesh, grads, *terms)
+
+    def guard(loss, grads, rng):
+        """Reference `_check_nan` semantics on a (loss, grads) pair."""
+        if not loss_cfg.nan_guard:
+            return loss, grads
+        return (losses.nan_guard_loss(loss, rng),
+                losses.zero_grads_if_nonfinite(loss, grads))
+
+    def check(phase, loss_name, loss, grads, names):
+        if debug_nans:
+            _raise_on_nan(phase, [(loss_name, loss)] + list(zip(names,
+                                                                grads)))
+
+    return reduce, guard, check
 
 
 def make_train_step(cfg: GANConfig, mesh: Optional[Mesh] = None,
@@ -135,6 +162,8 @@ def make_train_step(cfg: GANConfig, mesh: Optional[Mesh] = None,
     on every rank. A mesh of one process without a group computes the
     same forms with no collective. `debug_nans`: the module docstring's
     checks, each raising `FloatingPointError`."""
+    if is_galip(cfg):
+        return make_galip_step(cfg, mesh, debug_nans)
     gen_cfg, loss_cfg = cfg.generator, cfg.loss
     cdtype = cfg.train.compute_torch_dtype
     gp_dtype = (torch.bfloat16 if loss_cfg.gp_compute_dtype == "bfloat16"
@@ -146,23 +175,7 @@ def make_train_step(cfg: GANConfig, mesh: Optional[Mesh] = None,
     k_interval = loss_cfg.gp_interval
     gp_cfg = (loss_cfg if k_interval == 1 else dataclasses.replace(
         loss_cfg, gp_coef=loss_cfg.gp_coef * k_interval))
-
-    def reduce(grads, *terms):
-        if mesh is None:
-            return grads, terms
-        return _sum_over_ranks(mesh, grads, *terms)
-
-    def guard(loss, grads, rng):
-        """Reference `_check_nan` semantics on a (loss, grads) pair."""
-        if not loss_cfg.nan_guard:
-            return loss, grads
-        return (losses.nan_guard_loss(loss, rng),
-                losses.zero_grads_if_nonfinite(loss, grads))
-
-    def check(phase, loss_name, loss, grads, names):
-        if debug_nans:
-            _raise_on_nan(phase, [(loss_name, loss)] + list(zip(names,
-                                                                grads)))
+    reduce, guard, check = _phase_tools(loss_cfg, mesh, debug_nans)
 
     def step(state: TrainState, text_encoder: torch.nn.Module,
              images: torch.Tensor, captions: torch.Tensor,
@@ -247,5 +260,99 @@ def make_train_step(cfg: GANConfig, mesh: Optional[Mesh] = None,
                 "g_loss": g_adv.detach(),
                 "txtimg_loss": txtimg.detach(),
             }
+
+    return step
+
+
+def make_galip_step(cfg, mesh: Optional[Mesh] = None,
+                    debug_nans: bool = False) -> Callable[..., Metrics]:
+    """GALIP's step (`lib/modules.py::train`), with the same signature as
+    DF-GAN's: `step(state, clip, images, captions, cap_lens, noise=None)`,
+    `clip` the frozen CLIP (`models/clip.py`) in the text encoder's place.
+
+    One G forward (the text tower's sentence s under no_grad, the noise,
+    G with its mapper), then one D update on L_D = hinge + MA-GP over the
+    CLIP local features of the real and the detached fake images (both
+    encoded without a graph; `losses.galip_d_loss`; the mismatch pairs
+    image i with sentence i + 1, rolled), then one G update on L_G =
+    -mean C(D(F_fake), s) - sim_weight mean cos(global_fake, s) against
+    the updated D: the fakes are encoded again with a graph, the gradient
+    of L_G is taken with respect to them, and G's backward runs from it
+    (through the kernels and the mapper). No gradient clip; the EMA and
+    the NaN guard as in DF-GAN's step. The step's random draws: the noise,
+    then one scalar after each update (the guard's).
+
+    Spans (under a profiler): `step.g_forward`, `step.d_loss` (D's update)
+    and `step.g_hinge` (G's update and the EMA) tile the step; inside
+    them `clip.text`, `clip.image` and `galip.mapper`. Metrics: `d_loss`
+    (L_D), `d_gp_loss` (its MA-GP), `g_loss` (L_G) and `txtimg_loss`
+    (1 - the mean cosine), float32 on the device. Data
+    parallelism, `debug_nans` and the guard work as in DF-GAN's step."""
+    if cfg.train.compute_dtype != "float32":
+        raise ValueError("GALIP trains in float32 (one TF32 pass with "
+                         "--matmul-precision high), not "
+                         f"{cfg.train.compute_dtype}")
+    loss_cfg, layers = cfg.loss, tuple(cfg.discriminator.local_layers)
+    latent, ema_decay = cfg.generator.latent_dim, cfg.train.ema_decay
+    reduce, guard, check = _phase_tools(loss_cfg, mesh, debug_nans)
+
+    def step(state: TrainState, clip: torch.nn.Module,
+             images: torch.Tensor, captions: torch.Tensor,
+             cap_lens: torch.Tensor,
+             noise: Optional[torch.Tensor] = None) -> Metrics:
+        dev = images.device
+        with span("step.g_forward", dev):
+            g, d = state.generator, state.discriminator
+            g_names, g_params = zip(*g.named_parameters())
+            d_names, d_params = zip(*d.named_parameters())
+            batch = images.shape[0]
+            count = None if mesh is None else batch * mesh.world
+            with torch.no_grad():
+                sents = clip(captions, cap_lens).float()
+            if noise is None:
+                noise = torch.randn((count or batch, latent),
+                                    generator=state.rng, device=dev)
+                if mesh is not None:
+                    noise = noise[mesh.rank * batch:(mesh.rank + 1) * batch]
+            nxt = sents[:1] if mesh is None \
+                else _next_sentence(mesh, sents, wrap=True)
+            mismatch = torch.cat([sents[1:], nxt])
+            fake = g(noise, sents)
+            fake_detached = fake.detach()
+            if debug_nans:
+                _raise_on_nan("G forward", [("fake images", fake_detached)])
+
+        with span("step.d_loss", dev):
+            with torch.no_grad():
+                real_feats = clip.encode_image(images, layers)[0]
+                fake_feats = clip.encode_image(fake_detached, layers)[0]
+            d_loss, _, gp_loss = losses.galip_d_loss(
+                d, real_feats, fake_feats, sents, mismatch,
+                loss_cfg.gp_coef, loss_cfg.gp_power, count)
+            d_grads, (d_loss, gp_loss) = reduce(_grads(d_loss, d_params),
+                                                d_loss, gp_loss)
+            check("D (hinge + MA-GP)", "d_loss", d_loss, d_grads, d_names)
+            d_loss, d_grads = guard(d_loss, d_grads, state.rng)
+            state.d_opt.step(d_grads)
+
+        with span("step.g_hinge", dev):
+            fake_in = fake_detached.requires_grad_(True)
+            g_total, g_adv, sim = losses.galip_g_loss(
+                d, clip, fake_in, sents, loss_cfg.sim_weight, layers, count)
+            (d_fake,) = torch.autograd.grad(g_total, fake_in)
+            g_grads, (g_total, g_adv, sim) = reduce(
+                _grads(fake, g_params, d_fake), g_total, g_adv, sim)
+            check("G (hinge + CLIP similarity)", "g_loss", g_total, g_grads,
+                  g_names)
+            if loss_cfg.nan_guard:
+                g_grads = losses.zero_grads_if_nonfinite(g_total, g_grads)
+                g_total = losses.nan_guard_loss(g_total, state.rng)
+            state.g_opt.step(g_grads)
+            ema_update(state.g_ema, g, ema_decay)
+            state.step += 1
+            return {"d_loss": d_loss.detach(),
+                    "d_gp_loss": gp_loss.detach(),
+                    "g_loss": g_total.detach(),
+                    "txtimg_loss": 1.0 - sim.detach()}
 
     return step

@@ -32,6 +32,10 @@ global batch, and when the world is larger than one and Inception is
 loaded every rank enters `compute_is_fid_multihost`, even with an empty
 shard; the real side is cached as summed-moment inputs.
 
+GALIP (`cfg` a `GALIPConfig`): the same loop, checkpoints and eval, with
+GALIP's modules and step (`train/state.py`, `train/step.py`) and the CLIP
+model in the text encoder's place.
+
 Where the time goes is kept in `self.timers`, the device time of each step
 and of each host-to-device copy (CUDA events on a card), and in
 `self.host_seconds`, the host's seconds in `train_epoch` (which ends in the
@@ -51,7 +55,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import GANConfig
+from ..config import GANConfig, is_galip
 from ..eval import metrics
 from ..models.inception import inception_to
 from ..parallel.dp import replicate
@@ -73,8 +77,11 @@ class Trainer:
                  device: str | torch.device = "cuda",
                  mesh: Optional[Mesh] = None, debug_nans: bool = False):
         """`text_encoder` maps (captions, cap_lens) to sentence embeddings
-        and is frozen; it and `inception_params` (`models/inception.py`;
-        None: IS/FID record their sentinels) are moved to `device` (CUDA
+        and is frozen (for a `GALIPConfig`, the CLIP of `models/clip.py`,
+        whose visual tower G's mapper and D's features share; the trainer
+        counts its tokens a step in `clip_tokens`); it and
+        `inception_params` (`models/inception.py`; None: IS/FID record
+        their sentinels) are moved to `device` (CUDA
         unless the caller passes "cpu"; raises without a card), or under
         data parallelism to `mesh.device`. `debug_nans`: each step raises
         `FloatingPointError` at its first NaN (`train/step.py`)."""
@@ -97,8 +104,10 @@ class Trainer:
             if self.primary else None
 
         seed = cfg.train.seed if seed is None else seed
-        self.state: TrainState = create_train_state(cfg, seed,
-                                                    device=self.device)
+        galip = is_galip(cfg)
+        self.state: TrainState = create_train_state(
+            cfg, seed, device=self.device,
+            clip=text_encoder if galip else None)
         self.text_encoder = text_encoder.to(self.device).eval()
         self.text_encoder.requires_grad_(False)
         if mesh is not None:
@@ -124,6 +133,9 @@ class Trainer:
                        "h2d": StepTimer(0, self.device)}
         self.host_seconds = {"train": 0.0, "data_wait": 0.0, "eval": 0.0,
                              "checkpoint": 0.0}
+        # tokens through GALIP's CLIP towers in the last step (0: DF-GAN)
+        self.clip_tokens = 0
+        self._clip = text_encoder if galip else None
 
     def close(self) -> None:
         """Release the JSONL log file handle (idempotent)."""
@@ -198,9 +210,12 @@ class Trainer:
         while staged is not None:
             current = self._await(staged)
             staged = self._stage(batches)
+            tokens = self._clip.tokens if self._clip is not None else 0
             with self.timers["step"], span("train.step", self.device):
                 metrics = self._step_fn(self.state, self.text_encoder,
                                         *current)
+            if self._clip is not None:
+                self.clip_tokens = self._clip.tokens - tokens
             for k, v in metrics.items():
                 metric_accum.setdefault(k, []).append(v)
         if not metric_accum:

@@ -55,6 +55,19 @@ The JAX CLI's options that mean something on the card:
   `FloatingPointError` at its first NaN, naming the phase and the tensor,
   before the NaN guard hides it; the run then exits non-zero.
 
+GALIP (`--config FILE`, a `GALIPConfig` as JSON with `"architecture":
+"galip"`): trains GALIP (`models/galip.py`) with the sizes, losses and
+optimizer of the file; `--batch-size`, `--epochs`, `--seed`, the
+precision and the data flags apply as for DF-GAN; `--text-encoder` names
+OpenAI's CLIP weights (`ViT-B-32.pt`, its state_dict or TorchScript
+archive); without them the CLIP is seeded at random. `captions.pickle`
+then holds CLIP BPE ids, framed to 77 tokens by the dataset:
+
+    python -m gan_codes_tpu_torch.train_entry --data DATA_DIR \\
+        --config h100_bench/configs/galip-cub224-tf32.json \\
+        --text-encoder ViT-B-32.pt --batch-size 64 \\
+        --matmul-precision high --images gen_images --weights gen_weights
+
 Not ported: the JAX package's TPU compilation and dispatch knobs, which are
 exact math and have no meaning here: `--compile-cache`, `--xla-vmem-kib`,
 the lane and image padding, and `--steps-per-dispatch` (its counterpart
@@ -63,14 +76,17 @@ on the card, a CUDA graph of the step, is a speed change for later).
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import os
 from typing import Optional, Sequence
 
 import torch
 
-from .config import DataConfig, GANConfig
+from .config import DataConfig, GANConfig, config_from_dict, is_galip
 from .data.dataset import CUBDataset
 from .data.loader import DataLoader
+from .models.clip import CLIP, load_openai_state_dict
 from .models.inception import load_torch_inception
 from .models.text_encoder import RNNEncoder
 from .models.torch_import import load_text_encoder
@@ -97,14 +113,16 @@ def train(data_path: str, encoder_weights_path: Optional[str],
           data_parallel: bool = False, multihost: bool = False,
           deterministic: bool = False,
           matmul_precision: Optional[str] = None, remat_g: bool = False,
-          device_prefetch: bool = False, debug_nans: bool = False):
+          device_prefetch: bool = False, debug_nans: bool = False,
+          config_path: Optional[str] = None):
     """Train (or resume) a DF-GAN on a CUB-format directory; returns the
     metric histories. `data_parallel` / `multihost` / `deterministic` /
     `matmul_precision` / `remat_g` / `device_prefetch` / `debug_nans`: the
     module docstring's `--dp` / `--multihost` / `--deterministic` /
     `--matmul-precision` / `--remat-g` / `--device-prefetch` /
     `--debug-nans` (cuDNN's flag and the precision are set for the call
-    and restored after it)."""
+    and restored after it). `config_path`: `--config`, a GALIP config
+    file; `encoder_weights_path` then names CLIP's weights."""
     cudnn_deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = cudnn_deterministic or deterministic
     mesh = init_mesh(device) if data_parallel or multihost else None
@@ -129,7 +147,24 @@ def train(data_path: str, encoder_weights_path: Optional[str],
             os.makedirs(image_save_path, exist_ok=True)
             os.makedirs(gen_path_save, exist_ok=True)
 
-        data_cfg = DataConfig(data_dir=data_path, image_size=image_size)
+        galip = None
+        if config_path is not None:
+            with open(config_path) as f:
+                galip = config_from_dict(json.load(f))
+            if not is_galip(galip):
+                raise ValueError(f"--config {config_path}: only a GALIP "
+                                 "config (\"architecture\": \"galip\") "
+                                 "is read; DF-GAN takes its sizes from the "
+                                 "flags")
+            if remat_g:
+                raise ValueError("--remat-g recomputes DF-GAN's generator "
+                                 "blocks; GALIP (--config) has no such "
+                                 "path")
+            image_size = galip.generator.image_size
+            data_cfg = dataclasses.replace(galip.data, data_dir=data_path,
+                                           image_size=image_size)
+        else:
+            data_cfg = DataConfig(data_dir=data_path, image_size=image_size)
         train_ds = CUBDataset(data_cfg, "train")
         # The reference applies RandomCrop/Flip to the TEST loader too
         # (`src/utils.py:13-24`); deterministic eval is the default here,
@@ -150,11 +185,27 @@ def train(data_path: str, encoder_weights_path: Optional[str],
             log_every_steps=log_every_steps, eval_every_epochs=eval_every,
             eval_sqrtm=eval_sqrtm, device_prefetch=device_prefetch)
 
+        if galip is not None:
+            cfg = dataclasses.replace(
+                galip, data=data_cfg,
+                train=dataclasses.replace(
+                    cfg.train, ema_decay=galip.train.ema_decay))
+
         train_loader = DataLoader(train_ds, batch_size, seed=seed, **shard)
         test_loader = DataLoader(test_ds, batch_size, shuffle=False, seed=seed,
                                  **shard)
 
-        if encoder_weights_path and os.path.exists(encoder_weights_path):
+        if galip is not None:
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(seed)
+                text_encoder = CLIP(cfg.text_encoder)
+            if encoder_weights_path and os.path.exists(encoder_weights_path):
+                load_openai_state_dict(text_encoder, load_clip_state_dict(
+                    encoder_weights_path))
+            elif primary:
+                print("Warning: no CLIP weights (ViT-B-32.pt); using a "
+                      "seeded random CLIP")
+        elif encoder_weights_path and os.path.exists(encoder_weights_path):
             text_encoder, _ = load_text_encoder(encoder_weights_path,
                                                 cfg.text_encoder)
         else:
@@ -193,6 +244,15 @@ def train(data_path: str, encoder_weights_path: Optional[str],
         torch.backends.cudnn.deterministic = cudnn_deterministic
         if replaced is not None:
             set_matmul_precision(replaced[0])
+
+
+def load_clip_state_dict(path: str):
+    """CLIP's state_dict from OpenAI's file: a TorchScript archive (as
+    `ViT-B-32.pt` ships) or a plain `torch.save` of the state_dict."""
+    try:
+        return torch.jit.load(path, map_location="cpu").state_dict()
+    except RuntimeError:
+        return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -277,6 +337,12 @@ def main(argv: Optional[Sequence[str]] = None):
     p.add_argument("--debug-nans", action="store_true",
                    help="fail fast: raise FloatingPointError at a step's "
                         "first NaN, naming the phase and tensor")
+    p.add_argument("--config", default=None,
+                   help="a GALIP config file (JSON with \"architecture\": "
+                        "\"galip\", e.g. h100_bench/configs/"
+                        "galip-cub224-tf32.json): trains GALIP; "
+                        "--text-encoder then names CLIP's weights "
+                        "(ViT-B-32.pt), and the sizes come from the file")
     p.add_argument("--mesh-layout", default="flat",
                    help="the JAX package's TPU mesh layout; only the "
                         "default 'flat' (NCCL picks its own rings)")
@@ -304,7 +370,7 @@ def main(argv: Optional[Sequence[str]] = None):
                  deterministic=a.deterministic,
                  matmul_precision=a.matmul_precision, remat_g=a.remat_g,
                  device_prefetch=a.device_prefetch,
-                 debug_nans=a.debug_nans)
+                 debug_nans=a.debug_nans, config_path=a.config)
 
 
 if __name__ == "__main__":
