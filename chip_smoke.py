@@ -73,14 +73,18 @@ Phases (any failed check raises, so the run exits non-zero):
    seeded text encoder and a seeded batch of TRAIN_BATCH images in [-1, 1]
    and random captions, and runs `make_train_step`'s 3-phase step:
    TRAIN_STEPS steps in float32 (TF32 off) with the launch counters set to
-   0 just before and read just after (14 K2, 0 K1, 14 K1 bwd per step),
-   then in bfloat16; every metric must be finite. Prints train img/s over
+   0 just before and read just after (14 K2, 0 K1, 14 K1 bwd per step;
+   19 MA-GP weight terms per step, `PenaltyConv2d.weight_terms`), then in
+   bfloat16; every metric must be finite. Prints train img/s over
    two windows of at least TRAIN_WINDOW_S seconds (CUDA events; in fp32
    two more between them on cuDNN's deterministic algorithms), the peak
    device memory (the whole, and above what a garbage collection leaves
    allocated before the state is made), the device time of a step by
    kernel group
-   (torch.profiler) and of each phase apart (CUDA events). From one fp32
+   (torch.profiler) and of each phase apart (CUDA events), and MA-GP
+   alone at batch TRAIN_BATCH in fp32 and at one TF32 pass, through
+   `PenaltyConv2d` and through autograd's own double backward (device ms,
+   the kernels by device ms, the weight terms: 19 and 0). From one fp32
    state, held against the same through the plain versions: the phase-3
    G gradients against one D; one whole step, D learning (its losses, its
    phase-1 D gradients and its G gradients); the phase-3 G gradients
@@ -1499,6 +1503,7 @@ def train():
     import torch
 
     from gan_codes_tpu_torch.ops.kernels import fused_modconv
+    from gan_codes_tpu_torch.ops.nn import PenaltyConv2d
     from gan_codes_tpu_torch.train import losses
 
     k2, k1, k1b = _counters()
@@ -1513,8 +1518,14 @@ def train():
             "params")
         if dtype == "float32":
             k2.launches = k1.launches = k1b.launches = 0  # main path
+            PenaltyConv2d.weight_terms = 0
             metrics = [step(state, te, *batch) for _ in range(TRAIN_STEPS)]
             counts = (k2.launches, k1.launches, k1b.launches)  # ends here
+            terms = PenaltyConv2d.weight_terms
+            log(f"[train] MA-GP weight terms over {TRAIN_STEPS} steps: "
+                f"{terms} (want {19 * TRAIN_STEPS}, 19 a step)")
+            if terms != 19 * TRAIN_STEPS:
+                raise AssertionError(f"PenaltyConv2d.weight_terms {terms}")
             # per step: K2 at each DFBlock its _supported takes, K1 at the
             # others; K1 bwd at every DFBlock (K2's backward runs it with z
             # for h, and no K1)
@@ -1597,6 +1608,7 @@ def train():
                         device="cuda")
     numbers["phase_ms"] = _phase_times(state, te, images, captions,
                                        cap_lens, noise, cfg.loss)
+    numbers["penalty_ms"] = penalty_times()
     log(f"[train] fp32 device ms by phase (CUDA events, 3 calls each): "
         f"{json.dumps(numbers['phase_ms'])}")
 
@@ -1802,6 +1814,98 @@ def _phase_times(state, te, images, captions, cap_lens, noise, loss_cfg):
     return {name: cuda_ms(fn, 3) for name, fn in (
         ("g_fwd_bwd", g_fwd_bwd), ("phase1_d_hinge", phase1),
         ("phase2_ma_gp", phase2), ("phase3_d", phase3_d))}
+
+
+def _penalty_grads(d, images, sents, loss_cfg, penalty: bool):
+    """MA-GP's D gradients through `losses.ma_gradient_penalty` (D's convs
+    as `ops_nn.PenaltyConv2d`) or, with `penalty` False, through
+    autograd's own double backward of `F.conv2d` (the step before
+    `PenaltyConv2d`)."""
+    import torch
+
+    from gan_codes_tpu_torch.train import losses
+
+    params = list(d.parameters())
+    if penalty:
+        gp = losses.ma_gradient_penalty(d, images, sents, loss_cfg)
+    else:
+        x = images.detach().requires_grad_(True)
+        s = sents.detach().requires_grad_(True)
+        g_img, g_sent = torch.autograd.grad(d.logits(d.embeds(x), s).sum(),
+                                            (x, s), create_graph=True)
+        gp = losses.penalty(g_img, g_sent, loss_cfg.gp_coef,
+                            loss_cfg.gp_power, loss_cfg.gp_eps,
+                            loss_cfg.gp_norm_clip)
+    return torch.autograd.grad(gp, params, allow_unused=True)
+
+
+def penalty_times(batch: int = TRAIN_BATCH) -> dict:
+    """MA-GP alone (the penalty and its D gradients) at the training
+    cells' shapes (D at 256 px, full width, `batch` images), device ms
+    (CUDA events, 5 calls after 3 warm ones) and the peak memory of one
+    call above what it starts from, through `PenaltyConv2d`
+    ("new") and through autograd's own double backward ("native"), in
+    fp32 (precision "highest") and at one TF32 pass ("high"), each with
+    its cuDNN kernels by device ms (torch.profiler), and the weight terms
+    a penalty forms (`PenaltyConv2d.weight_terms`: 19)."""
+    import torch
+
+    from gan_codes_tpu_torch.config import DiscriminatorConfig, LossConfig
+    from gan_codes_tpu_torch.models.discriminator import Discriminator
+    from gan_codes_tpu_torch.ops import nn as ops_nn
+    from gan_codes_tpu_torch.utils.device import set_matmul_precision
+
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        d = Discriminator(DiscriminatorConfig())
+    with torch.no_grad():
+        for name, p in d.named_parameters():
+            if name.endswith(".gamma"):
+                p.copy_(torch.rand(1, generator=gen) * 0.5 + 0.25)
+    d = d.cuda()
+    images = (torch.rand(batch, 256, 256, 3, generator=gen) * 2 - 1).cuda()
+    sents = torch.randn(batch, 256, generator=gen).cuda()
+    loss_cfg = LossConfig()
+    out = {"batch": batch}
+    for precision in ("highest", "high"):
+        previous = set_matmul_precision(precision)
+        try:
+            row = {}
+            for way, penalty in (("new", True), ("native", False)):
+                def fn(penalty=penalty):
+                    _penalty_grads(d, images, sents, loss_cfg, penalty)
+
+                ops_nn.PenaltyConv2d.weight_terms = 0
+                gc.collect()
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                fn()
+                row[f"{way}_weight_terms"] = ops_nn.PenaltyConv2d.weight_terms
+                row[f"{way}_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                          - base) / 2 ** 30
+                row[f"{way}_ms"] = cuda_ms(fn, 5)
+                res = _profile(fn, 1)
+                if res is not None:
+                    row[f"{way}_top_kernels_ms"] = [
+                        [name[:80], ms] for name, ms in res[1][:6]]
+            out[precision] = row
+        finally:
+            set_matmul_precision(previous)
+        log(f"[train] MA-GP alone, {precision}, batch {batch}: "
+            f"PenaltyConv2d {row['new_ms']:.2f} ms "
+            f"({row['new_weight_terms']} weight terms, peak "
+            f"{row['new_peak_gib']:.3f} GiB above the state), autograd's own "
+            f"{row['native_ms']:.2f} ms ({row['native_weight_terms']}, "
+            f"{row['native_peak_gib']:.3f} GiB)")
+        for way in ("new", "native"):
+            for name, ms in row.get(f"{way}_top_kernels_ms", []):
+                log(f"[profile] MA-GP {precision} {way} {ms:8.3f} ms  {name}")
+    if out["highest"]["new_weight_terms"] != 19 or \
+            out["highest"]["native_weight_terms"] != 0:
+        raise AssertionError(f"weight terms a penalty: {out}")
+    return out
 
 
 def _snapshot(obj):

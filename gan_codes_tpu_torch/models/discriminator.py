@@ -37,25 +37,31 @@ class Discriminator(nn.Module):
             ops_nn.LeakyReLU(),
             nn.Conv2d(cfg.n_channels * 2, 1, cfg.final_size, bias=False))
 
-    def embeds(self, image: torch.Tensor) -> torch.Tensor:
-        """[B, H, W, 3] -> [B, 4, 4, embed_channels]."""
+    def embeds(self, image: torch.Tensor,
+               penalty: bool = False) -> torch.Tensor:
+        """[B, H, W, 3] -> [B, 4, 4, embed_channels]. `penalty`: the
+        forward of MA-GP, whose convs are `ops_nn.PenaltyConv2d`."""
         stem = self.img_forward[0]
-        x = ops_nn.conv2d(image, stem.weight, stem.bias, padding=1)
+        x = ops_nn.conv2d(image, stem.weight, stem.bias, padding=1,
+                          penalty=penalty)
         for block in self.img_forward[1:]:
-            x = res_block_d(block, x)
+            x = res_block_d(block, x, penalty)
         return x
 
     def logits(self, image_embed: torch.Tensor,
-               sentence_embed: torch.Tensor) -> torch.Tensor:
-        """([B, 4, 4, C], [B, S]) -> [B, 1, 1, 1] matching-aware logits."""
+               sentence_embed: torch.Tensor,
+               penalty: bool = False) -> torch.Tensor:
+        """([B, 4, 4, C], [B, S]) -> [B, 1, 1, 1] matching-aware logits
+        (`penalty` as in `embeds`)."""
         b, h, w, _ = image_embed.shape
         sent = sentence_embed[:, None, None, :].expand(
             b, h, w, sentence_embed.shape[-1]).to(image_embed.dtype)
         joint = torch.cat([image_embed, sent], dim=-1)
         x = ops_nn.conv2d(joint, self.img_sentence_forward[0].weight,
-                          padding=1)
+                          padding=1, penalty=penalty)
         x = ops_nn.leaky_relu(x)
-        return ops_nn.conv2d(x, self.img_sentence_forward[2].weight)
+        return ops_nn.conv2d(x, self.img_sentence_forward[2].weight,
+                             penalty=penalty)
 
     def forward(self, image: torch.Tensor,
                 sentence_embed: torch.Tensor) -> torch.Tensor:

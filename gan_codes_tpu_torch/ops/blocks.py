@@ -128,21 +128,26 @@ class ResidualBlockD(nn.Module):
         return res_block_d(self, x)
 
 
-def res_block_d(block: ResidualBlockD, x: torch.Tensor) -> torch.Tensor:
+def res_block_d(block: ResidualBlockD, x: torch.Tensor,
+                penalty: bool = False) -> torch.Tensor:
     """x [B, H, W, Cin] NHWC -> [B, H/2, W/2, Cout].
 
     The shortcut is computed as the JAX package computes it
     (`blocks.py:225-234`): avg_pool(conv1x1(x) + bias) is one 2x2 stride-2
     conv whose kernel is the 1x1 kernel / 4 over the window (bias
-    unchanged); the identity branch is the plain 2x2 pool."""
-    h = ops_nn.conv2d(x, block.residual_conv[0].weight, stride=2, padding=1)
+    unchanged); the identity branch is the plain 2x2 pool. `penalty`: the
+    forward of MA-GP, whose convs are `ops_nn.PenaltyConv2d`."""
+    h = ops_nn.conv2d(x, block.residual_conv[0].weight, stride=2, padding=1,
+                      penalty=penalty)
     h = ops_nn.leaky_relu(h)
-    h = ops_nn.conv2d(h, block.residual_conv[2].weight, padding=1)
+    h = ops_nn.conv2d(h, block.residual_conv[2].weight, padding=1,
+                      penalty=penalty)
     h = ops_nn.leaky_relu(h)
     if block.scale_conv is not None:
         w = block.scale_conv.weight / 4.0
         shortcut = ops_nn.conv2d(x, w.expand(-1, -1, 2, 2),
-                                 block.scale_conv.bias, stride=2)
+                                 block.scale_conv.bias, stride=2,
+                                 penalty=penalty)
     else:
         shortcut = ops_nn.avg_pool2d(x, 2)
     return shortcut + block.gamma.to(x.dtype) * h

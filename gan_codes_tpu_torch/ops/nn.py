@@ -26,6 +26,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
 
 NEG_SLOPE = 0.2
 Params = Dict[str, torch.Tensor]
@@ -98,16 +99,97 @@ def dense(x: torch.Tensor, weight: torch.Tensor,
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None, stride: int = 1,
-           padding: int = 0) -> torch.Tensor:
+           padding: int = 0, penalty: bool = False) -> torch.Tensor:
     """NHWC x OIHW -> NHWC convolution, contiguous NHWC out.
 
-    The bias is added after the conv, as the JAX package adds it."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), stride=stride,
-                 padding=padding)
+    The bias is added after the conv, as the JAX package adds it.
+    `penalty` runs the conv as `PenaltyConv2d`, for the forward of a
+    gradient penalty alone (DF-GAN's MA-GP); else `F.conv2d` with
+    autograd's own nodes."""
+    x_nchw, w = x.permute(0, 3, 1, 2), weight.to(x.dtype)
+    y = (PenaltyConv2d.apply(x_nchw, w, stride, padding) if penalty
+         else F.conv2d(x_nchw, w, stride=stride, padding=padding))
     y = y.permute(0, 2, 3, 1)
     if bias is not None:
         y = y + bias.to(x.dtype)
     return y.contiguous()
+
+
+def _conv_backward(grad_out: torch.Tensor, x: torch.Tensor,
+                   w: torch.Tensor, stride: int, padding: int,
+                   mask) -> tuple:
+    """`aten::convolution_backward` of `F.conv2d(x, w, stride=stride,
+    padding=padding)`, forming the gradients `mask` names (input, weight,
+    bias). It takes the real x and w, not the expanded stand-ins of
+    `torch.nn.grad`, which cuDNN would copy out to contiguous NCHW
+    tensors: so it keeps their memory format (channels-last here)."""
+    return torch.ops.aten.convolution_backward(
+        grad_out, x, w, None, (stride, stride), (padding, padding), (1, 1),
+        False, (0, 0), 1, mask)
+
+
+class PenaltyConv2d(torch.autograd.Function):
+    """`F.conv2d(x, w)` (NCHW) whose backward is twice differentiable by
+    design, for the forward of a gradient penalty: its first backward
+    forms the input gradient alone, as `_ConvInputGrad`, whose backward
+    forms the penalty's weight term as a weight gradient (cuDNN's wgrad).
+
+    Autograd's own double backward of a conv forms that term as a conv
+    whose input is the incoming gradient ggI and whose filter is the
+    output gradient, both transposed to put the batch on the channels: a
+    filter the size of the output map, for which cuDNN in fp32 has only
+    its legacy implicit GEMM. The sum is the same, gW[o, i, u, v] =
+    sum_{n,h,w} gO[n, o, h, w] ggI[n, i, h s + u - p, w s + v - p]; only
+    its order differs.
+
+    The first backward forms no weight gradient: the penalty asks for the
+    input gradients alone (`autograd.grad` with respect to the images and
+    sentences), and a Function cannot tell which inputs `autograd.grad`
+    asked for. So the conv serves that use alone. `weight_terms` counts
+    the weight terms formed (19 a DF-GAN MA-GP at 256 px)."""
+
+    weight_terms = 0
+
+    @staticmethod
+    def forward(ctx, x, w, stride: int, padding: int):
+        ctx.save_for_backward(x, w)
+        ctx.conv = (stride, padding)
+        return F.conv2d(x, w, stride=stride, padding=padding)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, w = ctx.saved_tensors
+        # x gives the input's shape and layout; the input gradient does
+        # not depend on its values
+        return (_ConvInputGrad.apply(grad_out, x.detach(), w, *ctx.conv),
+                None, None, None)
+
+
+class _ConvInputGrad(torch.autograd.Function):
+    """The input gradient of `F.conv2d(x, w)` from the output gradient g
+    (cuDNN's dgrad), differentiable in g (the conv itself, the fprop
+    autograd runs) and in w (the weight gradient of g against ggI)."""
+
+    @staticmethod
+    def forward(ctx, grad_out, x, w, stride: int, padding: int):
+        ctx.save_for_backward(grad_out, w)
+        ctx.conv = (stride, padding)
+        return _conv_backward(grad_out, x, w, stride, padding,
+                              (True, False, False))[0]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gg):
+        grad_out, w = ctx.saved_tensors
+        stride, padding = ctx.conv
+        d_grad_out = d_w = None
+        if ctx.needs_input_grad[0]:
+            d_grad_out = F.conv2d(gg, w, stride=stride, padding=padding)
+        if ctx.needs_input_grad[2]:
+            d_w = _conv_backward(grad_out, gg, w, stride, padding,
+                                 (False, True, False))[1]
+            PenaltyConv2d.weight_terms += 1
+        return d_grad_out, None, d_w, None, None
 
 
 @functools.lru_cache(maxsize=None)

@@ -82,10 +82,12 @@ def ma_gradient_penalty(d: Discriminator, real_images: torch.Tensor,
     `create_graph=True` so the penalty backpropagates into D's parameters (a
     double backward through every D conv); per-sample norm
     sqrt(sum g^2 + eps) in fp32, clamped to [0, clip];
-    penalty = coef * mean(norm^power)."""
+    penalty = coef * mean(norm^power). D's convs run as
+    `ops_nn.PenaltyConv2d`, so each conv's weight term is one cuDNN weight
+    gradient."""
     images = real_images.detach().requires_grad_(True)
     sents = sentence_embeds.detach().requires_grad_(True)
-    logits = d.logits(d.embeds(images), sents)
+    logits = d.logits(d.embeds(images, penalty=True), sents, penalty=True)
     g_img, g_sent = torch.autograd.grad(logits.sum(), (images, sents),
                                         create_graph=True)
     return penalty(g_img, g_sent, cfg.gp_coef, cfg.gp_power, cfg.gp_eps,

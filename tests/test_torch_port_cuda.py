@@ -3,6 +3,8 @@ K1 forward and backward (one launch, with z), K2 forward and its weight
 pack, K3 forward (one kernel, bit for bit on a repeat), the one-pass TF32
 mode of K2 and K3 (the process's precision at "high"), and the gradients
 of the kernels' autograd Functions against the plain versions' autograd.
+Also DF-GAN's MA-GP through `ops_nn.PenaltyConv2d` against autograd's own
+double backward at the training cells' shapes.
 
 Every test here is marked `cuda` and skips without a CUDA device. On a
 machine with one (and nvcc), with or without JAX installed:
@@ -457,3 +459,82 @@ class TestResBlockOnCard:
                 for a in _k3_inputs(1, 4, 4, 16, 48, True)]
         with pytest.raises(ValueError, match="Cout"):
             fused_resblock.fused_resblock_g(*args)
+
+
+def _ma_gp_d_grads(d, images, sents, penalty: bool):
+    """MA-GP's D gradients: through `losses.ma_gradient_penalty` (D's convs
+    as `ops_nn.PenaltyConv2d`) or, with `penalty` False, the same penalty
+    through autograd's own double backward of `F.conv2d`."""
+    from gan_codes_tpu_torch.config import LossConfig
+    from gan_codes_tpu_torch.train import losses
+
+    cfg = LossConfig()
+    params = list(d.parameters())
+    if penalty:
+        gp = losses.ma_gradient_penalty(d, images, sents, cfg)
+    else:
+        x = images.detach().requires_grad_(True)
+        s = sents.detach().requires_grad_(True)
+        g_img, g_sent = torch.autograd.grad(d.logits(d.embeds(x), s).sum(),
+                                            (x, s), create_graph=True)
+        gp = losses.penalty(g_img, g_sent, cfg.gp_coef, cfg.gp_power,
+                            cfg.gp_eps, cfg.gp_norm_clip)
+    grads = torch.autograd.grad(gp, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(params, grads)]
+
+
+@pytest.mark.cuda
+class TestPenaltyConvOnCard:
+    """DF-GAN's MA-GP with D's convs as `ops_nn.PenaltyConv2d` against
+    autograd's own double backward, at the training cells' shapes (D at
+    256 px, full width, batch 24)."""
+
+    @pytest.mark.parametrize("precision,limit", [("highest", 0.012),
+                                                 ("high", 0.35)])
+    def test_d_gradients_against_autograd(self, cuda, precision, limit):
+        """Each leaf's gradient gap, |new - native| / max(|native|, the
+        median leaf's norm), within the limit the cell holds MA-GP's
+        gradient to against the reference (`grad_gap_gp`: fp32 0.012, one
+        TF32 pass 0.35); in fp32 the penalty runs no cuDNN
+        `implicit_convolve_sgemm` kernel."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from gan_codes_tpu_torch.config import DiscriminatorConfig
+        from gan_codes_tpu_torch.models.discriminator import Discriminator
+
+        gen = torch.Generator().manual_seed(5)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(5)
+            d = Discriminator(DiscriminatorConfig())
+        with torch.no_grad():
+            for name, p in d.named_parameters():
+                if name.endswith(".gamma"):
+                    p.copy_(torch.rand(1, generator=gen) * 0.5 + 0.25)
+        d = d.to(cuda)
+        images = (torch.rand(24, 256, 256, 3, generator=gen) * 2 - 1).to(cuda)
+        sents = torch.randn(24, 256, generator=gen).to(cuda)
+        previous = pdevice.set_matmul_precision(precision)
+        try:
+            new = _ma_gp_d_grads(d, images, sents, True)
+            native = _ma_gp_d_grads(d, images, sents, False)
+            if precision == "highest":
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    _ma_gp_d_grads(d, images, sents, True)
+                    torch.cuda.synchronize()
+                kernels = {e.name for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA}
+        finally:
+            pdevice.set_matmul_precision(previous)
+        norms = [float(w.double().norm()) for w in native]
+        med = float(np.median(norms))
+        assert med > 0
+        gaps = {n: float((g.double() - w.double()).norm()) / max(wn, med)
+                for (n, _), g, w, wn in zip(d.named_parameters(), new,
+                                            native, norms)}
+        worst = max(gaps, key=gaps.get)
+        assert gaps[worst] <= limit, (worst, gaps[worst])
+        if precision == "highest":
+            assert kernels, "the profiler recorded no kernel"
+            assert not [k for k in kernels
+                        if "implicit_convolve_sgemm" in k], sorted(kernels)

@@ -239,6 +239,20 @@ def test_first_gradients_match_the_reference(one_step, module):
         assert gap <= 1e-4 * max(float(w.norm()), med), (n, gap)
 
 
+def test_galip_step_runs_no_penalty_conv(model):
+    """GALIP's step (CLIP, G, NetD and NetC, its feature MA-GP) keeps
+    `F.conv2d` and autograd's own nodes: no conv runs as DF-GAN's
+    `ops_nn.PenaltyConv2d`, and no weight term is formed by one."""
+    from unittest import mock
+
+    terms = ops_nn.PenaltyConv2d.weight_terms
+    with mock.patch.object(ops_nn.PenaltyConv2d, "apply",
+                           wraps=ops_nn.PenaltyConv2d.apply) as forwards:
+        _port_step(model)
+    assert forwards.call_count == 0
+    assert ops_nn.PenaltyConv2d.weight_terms == terms
+
+
 def test_a_mesh_of_one_process_takes_the_same_step(model, one_step):
     """The data-parallel forms (losses over the global count, the rolled
     mismatch wrapping to rank 0's sentence) on a mesh of one process

@@ -2,7 +2,11 @@
 (`train/step.py`'s `make_train_step` and `train/losses.py`'s
 `d_hinge_loss` and `ma_gradient_penalty`, verbatim), the oracle that
 tests/test_torch_port_galip.py holds the refactored step to, bit for bit.
-The helpers the refactor left unchanged are imported."""
+The helpers the refactor left unchanged are imported. One line is not
+verbatim: `ma_gradient_penalty` runs D with `penalty=True`, as the step
+does since its convs take `ops_nn.PenaltyConv2d` there (another order of
+the weight terms' sums); tests/test_torch_port_penalty_conv.py holds that
+conv against autograd's own double backward."""
 from __future__ import annotations
 
 import dataclasses
@@ -67,7 +71,7 @@ def ma_gradient_penalty(d: Discriminator, real_images: torch.Tensor,
     penalty = coef * mean(norm^power)."""
     images = real_images.detach().requires_grad_(True)
     sents = sentence_embeds.detach().requires_grad_(True)
-    logits = d.logits(d.embeds(images), sents)
+    logits = d.logits(d.embeds(images, penalty=True), sents, penalty=True)
     g_img, g_sent = torch.autograd.grad(logits.sum(), (images, sents),
                                         create_graph=True)
     b = images.shape[0]
