@@ -1,52 +1,47 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (`gan_codes_tpu_torch`) on one GPU.
+"""On-card checks of the PyTorch/CUDA port (`gan_codes_tpu_torch`) on one
+GPU.
 
 Run from the root of the repository, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
+It checks; it measures nothing. `h100_bench/` measures the port end to
+end and per layer, and `gan_codes_tpu_torch/tools/kernel_ab.py` times each
+kernel alone.
+
 Phases (any failed check raises, so the run exits non-zero):
 
 1. Build: compiles every kernel source in `gan_codes_tpu_torch/csrc/` for
    sm_90a, one nvcc per source started together, then links them into one
-   library; prints the build seconds and the card's name and power limit.
+   library; prints the card's name and power limit.
 2. Kernels: calls each kernel's wrapper on the card at the shapes the main
    paths give it (batch 8): K2 at every DFBlock its `_supported` takes (all
-   14 of the 256px generator), K1 bwd at the input of every DFBlock of a
-   train step (14 DFBlocks, 10 distinct shapes; K2's backward runs it with
-   z, which gives h for the weight gradient), K1 at the same shapes (the
-   served forward runs it on the DFBlocks K2 declines, none at 256px), in
-   float32 with TF32 off and in bfloat16, and holds each result against
-   the kernel's plain PyTorch version on the same inputs, K2's and K1
-   bwd's also against a second call bit for bit, K1 bwd's z against K1's
-   output bit for bit. Prints errors, kernel / plain / library times (CUDA
-   events; K1 both as device time, GRAPH_CALLS calls in one CUDA graph,
-   and as back-to-back eager calls, whose gap is the wrapper's host cost)
-   and the bound, the clusters of K1 bwd the card holds at once, and K2's
-   backward (its autograd Function) against the plain composition's
-   autograd backward. K3 (`fused_resblock_g`, on no model path) runs at
-   the 7 residual-block shapes of the 256px generator, batch 8, in both
-   dtypes, against its plain version and a second call bit for bit, with
-   its time beside the port's current way to compute a block
-   (`composition_ms`: K2, or K1 and cuDNN, per DFBlock, the cuDNN 1x1
-   shortcut, the residual add) and its bound by route (3xTF32 on the TF32
-   tensor cores in fp32, the bf16 tensor cores in bf16), its `_plan`
-   (tile, N tile, ring, conv1's share), and its backward (fp32) against
-   the plain composition's autograd.
+   14 of the 256px generator), K1 and K1 bwd at the input of every DFBlock
+   of a train step (14 DFBlocks, 10 distinct shapes; K2's backward runs K1
+   bwd with z, which gives h for the weight gradient; the served forward
+   runs K1 on the DFBlocks K2 declines, none at 256px), in float32 with
+   TF32 off and in bfloat16, and holds each result against the kernel's
+   plain PyTorch version on the same inputs, K2's and K1 bwd's also
+   against a second call bit for bit, K1 bwd's also against the call
+   without z, and K1 bwd's z against K1's output bit for bit. K3
+   (`fused_resblock_g`, on no model path) runs at the 7 residual-block
+   shapes of the 256px generator, batch 8, in both dtypes, against its
+   plain version and a second call bit for bit, and its backward (fp32)
+   against the plain composition's autograd.
 3. Serve: writes seeded random full-width weights (256px, n_channels=32,
    vocab 5450, embed 300, hidden 256, every block gamma != 0) as
    reference-format `gen_1.pth` + `text_encoder.pth` + `captions.pickle`,
    builds the sampler with `build_sampler`, serves it with
    `make_http_server` on 127.0.0.1, and drives POST /generate (prompts and
-   captions, PNG and JPEG, then LATENCY_REQUESTS single-prompt requests one
-   at a time, whose latency percentiles it prints), /healthz and /metrics.
-   The kernels' launch counters are set to 0 just before the requests and
+   captions, PNG and JPEG, then SINGLE_REQUESTS single-prompt requests one
+   at a time), /healthz and /metrics (the request and image counts). The
+   kernels' launch counters are set to 0 just before the requests and
    must rise by exactly their share of 14 DFBlocks per dispatched batch.
    One batch with explicit noise is held against the same forward through
-   the plain versions on the card. Prints the device time of a served batch
-   by kernel group (torch.profiler) and Sampler throughput at batch 16 and
-   64 in float32 and bfloat16, each over THROUGHPUT_WINDOWS windows of
-   several seconds.
+   the plain versions on the card; the same batch through a bfloat16
+   sampler prints its gap to it, and that sampler's `throughput` runs two
+   batches (its card-only branch; the rate is not read).
 3b. Serving, the rest (phase 3's weights dir and fp32 sampler, batch 16,
    TF32 off): writes seeded `gen_2.pth`, `gen_ema_1.pth`, `gen_ema_2.pth`
    (to a temporary name, then renamed, as the trainer writes). (a)
@@ -55,19 +50,18 @@ Phases (any failed check raises, so the run exits non-zero):
    `POST /reload` while a client thread sends one-prompt requests (every
    one must answer 200): `{}` moves to epoch 2, `{"epoch": 1}` pins epoch
    1; after each, a batch equals a sampler on that epoch's file bit for
-   bit, /healthz shows the epoch and `pinned`, /metrics `reloads_total`;
-   prints each reload's wall ms. (c) `--watch` (WATCH_S): a new
-   `gen_3.pth` is served within 10 s, then a pin on epoch 3 holds against
-   a newer `gen_4.pth` for 1 s. (d) BURST one-prompt requests at once,
-   coalesced (`--coalesce-ms` COALESCE_S) and not: all 200, at most 4
-   coalesced dispatches, K2 (K1) rising by exactly its share of 14 a
-   dispatch; prints each burst's wall seconds and latency percentiles.
-   (e) Data-parallel serving: `Sampler(devices=[cuda:0, cuda:0])` and
-   the CLI's `--dp` (every card, [cuda:0] here) against the plain sampler
-   with the same seed over 20 rows (2 batches): allclose(1e-4, 1e-4), K2
-   rising by 14 per replica per batch; img/s at batch 16 and 64 in turns
-   (plain, dp1, dp2, dp2, dp1, plain); `serve.main(data_parallel=True)`
-   end to end.
+   bit, /healthz shows the epoch and `pinned`, /metrics `reloads_total`.
+   (c) `--watch` (WATCH_S): a new `gen_3.pth` is served within 10 s, then
+   a pin on epoch 3 holds against a newer `gen_4.pth` for 1 s. (d) BURST
+   one-prompt requests at once, coalesced (`--coalesce-ms` COALESCE_S) and
+   not: all 200, at most 4 coalesced dispatches, K2 (K1) rising by exactly
+   its share of 14 a dispatch. (e) Data-parallel serving:
+   `Sampler(devices=[cuda:0, cuda:0])` and the CLI's `--dp` (every card,
+   [cuda:0] here) against the plain sampler with the same seed over 20
+   rows (2 batches): allclose(1e-4, 1e-4), K2 rising by 14 per replica per
+   batch; `throughput` runs two batches on the plain and the two-replica
+   sampler (the rate is not read); `serve.main(data_parallel=True)` end to
+   end.
 4. Train: builds seeded full-width train states (G 256px n_channels 32,
    D n_channels 32, every block gamma != 0) with `create_train_state`, a
    seeded text encoder and a seeded batch of TRAIN_BATCH images in [-1, 1]
@@ -75,23 +69,14 @@ Phases (any failed check raises, so the run exits non-zero):
    TRAIN_STEPS steps in float32 (TF32 off) with the launch counters set to
    0 just before and read just after (14 K2, 0 K1, 14 K1 bwd per step;
    19 MA-GP weight terms per step, `PenaltyConv2d.weight_terms`), then in
-   bfloat16; every metric must be finite. Prints train img/s over
-   two windows of at least TRAIN_WINDOW_S seconds (CUDA events; in fp32
-   two more between them on cuDNN's deterministic algorithms), the peak
-   device memory (the whole, and above what a garbage collection leaves
-   allocated before the state is made), the device time of a step by
-   kernel group
-   (torch.profiler) and of each phase apart (CUDA events), and MA-GP
-   alone at batch TRAIN_BATCH in fp32 and at one TF32 pass, through
-   `PenaltyConv2d` and through autograd's own double backward (device ms,
-   the kernels by device ms, the weight terms: 19 and 0). From one fp32
-   state, held against the same through the plain versions: the phase-3
-   G gradients against one D; one whole step, D learning (its losses, its
-   phase-1 D gradients and its G gradients); the phase-3 G gradients
-   against the D that step left through the kernels. Runs REPEAT_STEPS
-   fp32 steps twice from one state on cuDNN's default and on its
-   deterministic algorithms: the deterministic runs must leave every
-   parameter equal bit for bit (the default runs' count is printed).
+   bfloat16; every metric must be finite. From one fp32 state, held
+   against the same through the plain versions: the phase-3 G gradients
+   against one D; one whole step, D learning (its losses, its phase-1 D
+   gradients and its G gradients); the phase-3 G gradients against the D
+   that step left through the kernels. Runs REPEAT_STEPS fp32 steps twice
+   from one state on cuDNN's default and on its deterministic algorithms:
+   the deterministic runs must leave every parameter equal bit for bit
+   (the default runs' count is printed).
 5. Train entry: writes a synthetic CUB fixture (`make_synthetic_cub`,
    48 train and 24 test images of 256-511 px), a seeded text encoder and
    a seeded random InceptionV3 `.pth` in torchvision's layout (the keys of
@@ -107,11 +92,9 @@ Phases (any failed check raises, so the run exits non-zero):
    the runs drift apart from the last bit, and the resumed losses have
    differed from A's by 5%); the checkpoint files, one metrics row per
    epoch with a finite IS > 1 and a finite FID (not the sentinels 1.0 and
-   inf), and the sample grid; the launch counters rise by 14 K2, 0 K1 and 14 K1 bwd per step
-   plus 14 K2 and 0 K1 per eval batch; `build_sampler` serves B's
-   `gen_1.pth` over HTTP. Prints the trainer's img/s with the device time
-   of its steps and copies and the host's data wait, eval and checkpoint
-   seconds, beside the bare step's img/s of phase 4.
+   inf), and the sample grid; the launch counters rise by 14 K2, 0 K1 and
+   14 K1 bwd per step plus 14 K2 and 0 K1 per eval batch; `build_sampler`
+   serves B's `gen_1.pth` over HTTP.
 6. Eval: the reference's per-epoch protocol at full width, EVAL_BATCHES
    batches of 24 = 768 images a side: fakes from the 256px G (n_channels
    32, every block gamma != 0) on seeded random captions, seeded 256px
@@ -120,38 +103,32 @@ Phases (any failed check raises, so the run exits non-zero):
    set to 0 just before, `Trainer.evaluate` runs twice on a deterministic
    loader (the first computes the real side, the second reads it from the
    cache; 14 K2 and 0 K1 per eval batch); both give a finite IS > 1 and
-   FID, and the same scores within the card-against-CPU limits. Prints
-   each evaluation's seconds, the same evaluation in parts (G fakes,
-   Inception on the fake side, on the real side, the host's IS/FID math),
-   Inception's img/s at batch 8 to 128 and the batch sizes whose features
-   equal batch 8's bit for bit, the device time of a batch-8 Inception
-   forward by kernel group (torch.profiler), and eval's share of a CUB
-   epoch (368 steps at phase 4's img/s). Holds the card against
-   the CPU: the features and softmax of 8 images, and IS/FID over
-   EVAL_SUBSET images a side (the low-rank cross term taken on both).
+   FID, and the same scores within the card-against-CPU limits, as does
+   the same evaluation in parts (G fakes, Inception on each side, the
+   host's IS/FID math). Holds the card against the CPU: the features and
+   softmax of 8 images, and IS/FID over EVAL_SUBSET images a side (the
+   low-rank cross term taken on both).
 7. Data parallelism (`gan_codes_tpu_torch/parallel/`). (a) The production
    path at world size 1 over NCCL: `train_entry --dp` in a child process
    (this script with `--dp-entry-child`) with a torchrun environment
    (RANK 0, WORLD_SIZE 1), on phase 5's data, text encoder and Inception
    `.pth` with run A's flags (256px, n_channels 32, batch 24, fp32 with
-   TF32 off, deterministic cuDNN, 2 epochs), under torch.profiler. Holds: its losses within
+   TF32 off, deterministic cuDNN, 2 epochs). Holds: its losses within
    rtol 1e-3 and its IS - 1 and FID within ENTRY_IS_RTOL and
    ENTRY_FID_RTOL of run A's (the same data, seed and flags in another
    process), the launch counters (14 K2, 0 K1 and 14 K1 bwd a step, 14 K2
    an eval batch), and the collectives the parallel module counted: 4
    all-reduces a step (the next rank's sentence, then phase 1's, phase 2's
-   and phase 3's gradients with their losses) and 1 in `replicate`. Prints
-   the DP step's img/s (its CUDA-event step timers) beside run A's and the
-   bare step's, and the device time of the NCCL kernels. (b) Two ranks on
-   the one card over gloo (NCCL refuses two ranks on one device),
-   `gan_codes_tpu_torch/tools/dp_check.py`: one step from one state at
-   256px, local batch 12 + 12, against the single-process step on the
-   global batch of 24 (the same noise rows, drawn at the global batch):
-   d_loss within rtol 1e-4, the reduced phase-1 D and phase-3 G gradients
-   within 1e-3 of max|ref|, the ranks' states equal bit for bit; the
-   moment-reduced IS/FID over 2 x 24 fakes against `compute_is_fid` on
-   the 48 (IS - 1 within 1e-2, FID within 1e-5, relative). Prints its
-   wall time.
+   and phase 3's gradients with their losses) and 1 in `replicate`. (b)
+   Two ranks on the one card over gloo (NCCL refuses two ranks on one
+   device), `gan_codes_tpu_torch/tools/dp_check.py`: one step from one
+   state at 256px, local batch 12 + 12, against the single-process step
+   on the global batch of 24 (the same noise rows, drawn at the global
+   batch): d_loss within rtol 1e-4, the reduced phase-1 D and phase-3 G
+   gradients within 1e-3 of max|ref|, the ranks' states equal bit for
+   bit; the moment-reduced IS/FID over 2 x 24 fakes against
+   `compute_is_fid` on the 48 (IS - 1 within 1e-2, FID within 1e-5,
+   relative).
 8. Interop (`models/torch_import.py`): a full-width fp32 state after 2
    train steps on a seeded batch, saved as the reference's `checkpoint.pt`
    (its state_dicts in the reference's key order, each block's gamma
@@ -175,13 +152,9 @@ Phases (any failed check raises, so the run exits non-zero):
    backward against the plain composition's autograd (<= 1e-3 of
    max|ref| per input); launches exactly what the code launches (a
    forward 1 K1 at low res and K2 for DFBlock-2 where `_supported` takes
-   it, else a second K1; a backward 2 K1 bwd); its time beside the
-   kernel-path block's (upsample, then `res_block_g`): the forward per
-   dtype as eager calls and as device time (GRAPH_CALLS calls in one CUDA
-   graph), the fp32 forward + backward as eager calls (CUDA events). (b)
+   it, else a second K1; a backward 2 K1 bwd). (b)
    `ops/nn.py::conv3x3_on_upsampled` at the six conv_1 shapes, fp32,
-   against `conv2d(upsample_nearest_2x(x))`: allclose(1e-4, 1e-4), both
-   timed as in (a).
+   against `conv2d(upsample_nearest_2x(x))`: allclose(1e-4, 1e-4).
    (c) `examples/train_example.py` at 256px, batch 24, on its synthetic
    fixture of ENTRY_TRAIN + ENTRY_TEST images, 2 epochs (K2 and K1 bwd
    on 14 DFBlocks a step, K2 14 an eval batch), then `eval_example.py` on
@@ -193,8 +166,7 @@ Phases (any failed check raises, so the run exits non-zero):
    24, on (c)'s fixture, LONGRUN_EPOCHS epochs with a SIGKILL after epoch
    LONGRUN_KILL (train_entry in child processes, `--deterministic`, each
    within LEG_TIMEOUT_S; their launches are not counted here): the
-   resumed run equals its twin bit for bit, its losses in band. Prints
-   the phase's seconds.
+   resumed run equals its twin bit for bit, its losses in band.
 10. The last trainer options, at full width (256px, n_channels 32). (a)
    K2 at the 14 DFBlocks and K3 at the 7 blocks, batch 8, fp32, in one
    TF32 pass (the process's precision "high") and in 3xTF32 ("highest")
@@ -203,27 +175,26 @@ Phases (any failed check raises, so the run exits non-zero):
    2e-4, the 3xTF32 tolerances, as the products are exact) and a second
    call bit for bit; each mode's drift from the float64 plain version
    (one pass at least MODE_DRIFT_RATIO = 10 times 3xTF32's, which a
-   kernel that ignored its mode would not show), device ms and bound, and
-   cuDNN's F.conv2d with TF32 on. (b) The fp32
-   train step at batch 24 at "highest" and "high", in turns: img/s and
-   device ms by phase; one step's losses and G and phase-1 D gradients at
-   "high" against "highest" from one state (tolerances at TF32_STEP_TOL).
-   (c) The step with and without `remat_blocks` (`--remat-g`), fp32 batch
-   24, bf16 batch 24 and 128, from one state on deterministic cuDNN: the
+   kernel that ignored its mode would not show). (b) One fp32 step at
+   batch 24 at "high" against one at "highest" from one state: its losses
+   and G and phase-1 D gradients (tolerances at TF32_STEP_TOL). (c) The
+   step with and without `remat_blocks` (`--remat-g`), fp32 batch 24,
+   bf16 batch 24 and 128, from one state on deterministic cuDNN: the
    gradients bit for bit, the launches (K2, K1, K1 bwd: 28, 0, 14 with
-   remat, 14, 0, 14 without), img/s and peak memory, the whole and above
-   the arm's start (each arm starts after a garbage collection). (d) `train_entry.train` at 256px, batch 24, on a
-   synthetic CUB fixture with `matmul_precision="high"`, `remat_g`,
+   remat, 14, 0, 14 without). (d) `train_entry.train` at 256px, batch 24,
+   on a synthetic CUB fixture with `matmul_precision="high"`, `remat_g`,
    `device_prefetch` and `deterministic`: run A 2 epochs, run B 1 and
    resumed to 2 (equal to A bit for bit at epoch 2), run C as B's first
    epoch with the uploads on the step's stream (equal to it bit for
-   bit), the launch
-   counters of each run, and the profiler over A's first epoch: the
-   batches' host-to-device copies on a stream that runs none of K2's
-   launches. (e) A NaN in a G weight, then in a D weight, under
+   bit), the launch counters of each run, and the profiler over A's first
+   epoch: the batches' host-to-device copies on a stream that runs none
+   of K2's launches. (e) A NaN in a G weight, then in a D weight, under
    `debug_nans`: each step raises FloatingPointError naming its phase (the
-   G forward, phase 1). Prints the phase's seconds.
-11. Prints one {"kernels": [...]} line, the nvidia-smi line, and, last,
+   G forward, phase 1).
+11. Prints one {"kernels": [...]} line (each kernel's route, source, the
+   Pallas call it replaces, its launches by path, its phase-2 errors and,
+   for K2 and K3, phase 10's one-pass error and drifts), the nvidia-smi
+   line, and, last,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -232,7 +203,6 @@ result.
 from __future__ import annotations
 
 import base64
-import gc
 import io
 import json
 import os
@@ -248,13 +218,9 @@ import numpy as np
 
 SEED = 1234
 KERNEL_BATCH = 8
-LATENCY_REQUESTS = 300          # single-prompt HTTP requests, one at a time
-THROUGHPUT_BATCHES = {16: 300, 64: 150}  # several seconds per window
-THROUGHPUT_WINDOWS = 2
-GRAPH_CALLS = 20                 # K1 calls captured in one CUDA graph
+SINGLE_REQUESTS = 4             # single-prompt HTTP requests, one at a time
 TRAIN_BATCH = 24                 # the JAX package's TrainConfig default
 TRAIN_STEPS = 3                  # counted steps per dtype (main path)
-TRAIN_WINDOW_S = 3.5             # seconds per train throughput window
 REPEAT_STEPS = 2                 # steps a run of the repeatability check
 ENTRY_TRAIN, ENTRY_TEST = 48, 24  # synthetic CUB images for the train entry
 ENTRY_IS_RTOL = 2e-2             # phase 7a's IS - 1 against run A's
@@ -263,13 +229,6 @@ EVAL_BATCHES = 32                # the reference's eval_max_batches (x 24)
 EVAL_SUBSET = 48                 # images a side, IS/FID card against CPU
 EVAL_IS_RTOL = 1e-2              # IS - 1, card against CPU
 EVAL_FID_RTOL = 1e-5             # FID, card against CPU
-EVAL_BATCH_SIZES = (8, 16, 32, 64, 128)  # inception batches timed
-CUB_STEPS_PER_EPOCH = 368        # CUB's 8855 train images / batch 24
-H100_HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-H100_FP32_FLOPS = 67e12          # CUDA cores, non-tensor
-H100_BF16_TENSOR_FLOPS = 989e12  # dense tensor cores
-H100_TF32_TENSOR_FLOPS = 495e12  # dense tensor cores; K2's fp32 runs
-#                                  3xTF32, three TF32 products per product
 # tolerances of the kernel checks (phase 2), each against the plain version
 # on the same inputs:
 #   K1 only rounds where the plain version rounds (no reduction): fp32
@@ -339,57 +298,6 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean milliseconds per call over `iters` calls, after 3 warm calls,
-    with CUDA events around the run."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_ms(fn, calls: int = GRAPH_CALLS) -> float:
-    """Device milliseconds per call: `calls` calls of fn captured in one
-    CUDA graph, replayed twice between CUDA events after a warm replay (no
-    host time between the kernels)."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    del graph
-    return start.elapsed_time(end) / (2 * calls)
-
-
-def bound(n_bytes: float, flops: float, peak_flops: float):
-    t_bytes = n_bytes / H100_HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def dfblock_shapes(gcfg):
     """(H, Cin, Cout) of every DFBlock of one generator forward, in order."""
     shapes = []
@@ -419,9 +327,8 @@ def check_kernels(gcfg):
     """Phase 2. Returns per-kernel summaries for the kernels line and the
     per-forward counts of K2 and K1 launches on the served path."""
     import torch
-    import torch.nn.functional as F
 
-    from gan_codes_tpu_torch.ops.kernels import fused_affine, fused_modconv
+    from gan_codes_tpu_torch.ops.kernels import fused_modconv
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -438,30 +345,15 @@ def check_kernels(gcfg):
         "fused_modconv3x3": dict(
             route="cuda", source="gan_codes_tpu_torch/csrc/fused_modconv.cu",
             replaces="gan_codes_tpu/ops/pallas/fused_modconv.py:118",
-            ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-            max_abs_err=0.0, bound_by="operations", bwd_ms=0.0,
-            plain_bwd_ms=0.0, bound_ms_fp32_cuda_cores=0.0,
-            drift_vs_float64=0.0, cudnn_drift_vs_float64=0.0, bf16_ms=0.0,
-            bf16_plain_ms=0.0, bf16_library_ms=0.0, bf16_bound_ms=0.0,
-            bf16_max_abs_err=0.0, per="served forward",
-            path_shapes=len(k2_shapes)),
+            max_abs_err=0.0, bf16_max_abs_err=0.0),
         "fused_double_affine_leaky": dict(
             route="cuda", source="gan_codes_tpu_torch/csrc/fused_affine.cu",
             replaces="gan_codes_tpu/ops/pallas/fused_affine.py:71",
-            ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
-            max_abs_err=0.0, bound_by="bytes", call_ms=0.0,
-            ms_per_served_forward=0.0, bf16_ms=0.0, bf16_call_ms=0.0,
-            bf16_bound_ms=0.0, per="14 DFBlock inputs (a train step's "
-            "shapes); device time, CUDA graph", path_shapes=len(k1_step)),
+            max_abs_err=0.0),
         "fused_double_affine_leaky_bwd": dict(
             route="cuda", source="gan_codes_tpu_torch/csrc/fused_affine.cu",
             replaces="gan_codes_tpu/ops/pallas/fused_affine.py:133",
-            ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
-            max_abs_err=0.0, bound_by="bytes", call_ms=0.0,
-            no_z_ms=0.0, no_z_call_ms=0.0, no_z_bound_ms=0.0, bf16_ms=0.0,
-            bf16_call_ms=0.0, bf16_bound_ms=0.0,
-            per="train step (with z, as K2's backward runs it); device "
-            "time, CUDA graph", path_shapes=len(k1_step)),
+            max_abs_err=0.0),
     }
     log(f"[kernels] per forward: K2 takes {len(k2_shapes)} DFBlocks "
         f"{k2_shapes}, K1 takes {len(k1_path)} {k1_path}; per train step "
@@ -474,7 +366,6 @@ def check_kernels(gcfg):
     for dtype in (torch.float32, torch.bfloat16):
         fp32 = dtype == torch.float32
         name = "fp32" if fp32 else "bf16"
-        esize = 4 if fp32 else 2
         for (hw, cin, cout) in k2_shapes:
             x = rand(B, hw, hw, cin, dtype=dtype)
             g1, b1, g2, b2 = (rand(B, cin, dtype=dtype) for _ in range(4))
@@ -491,106 +382,21 @@ def check_kernels(gcfg):
                 raise AssertionError(f"K2 {name} {(B, hw, hw, cin, cout)}: "
                                      "a second call differs")
             top = ref.float().abs().max().item()
-            iters = 20 if hw >= 64 else 50
-            ms = cuda_ms(lambda: fused_modconv.fused_modconv3x3(*args), iters)
-            plain = cuda_ms(lambda: fused_modconv.reference_modconv3x3(*args),
-                            iters)
-            h = fused_affine.reference_double_affine_leaky(x, g1, b1, g2, b2)
-            h_nchw = h.permute(0, 3, 1, 2)
-            w_oihw = w.permute(3, 2, 0, 1).contiguous()
-            lib = cuda_ms(lambda: F.conv2d(h_nchw, w_oihw, bias, padding=1),
-                          iters)
-            n_bytes = (x.numel() + 4 * B * cin + w.numel() + cout
-                       + B * hw * hw * cout) * esize
-            flops = 2.0 * B * hw * hw * 9 * cin * cout
-            # fp32: 3xTF32 runs three TF32 tensor-core products a product
-            b_ms, b_by = (bound(n_bytes, 3 * flops, H100_TF32_TENSOR_FLOPS)
-                          if fp32 else
-                          bound(n_bytes, flops, H100_BF16_TENSOR_FLOPS))
             log(f"[kernels] K2 {name} x[{B},{hw},{hw},{cin}] -> {cout}: "
                 f"max_abs_err {err:.3g} max_rel_err {err / top:.3g}, second "
-                f"call bit-equal | kernel_ms {ms:.4f} plain_ms {plain:.4f} "
-                f"library_ms {lib:.4f} bound_ms {b_ms:.4f} ({b_by}) | "
-                f"{flops / ms / 1e9:.1f} TFLOP/s")
-            if fp32:
-                # drift from the float64 plain version, K2 beside cuDNN's
-                # fp32 (max|err| / max|ref|; printed, not held)
-                ref64 = fused_modconv.reference_modconv3x3(
-                    *(a.double() for a in args))
-                top64 = ref64.abs().max().item()
-                drift = (out.double() - ref64).abs().max().item() / top64
-                drift_lib = (ref.double() - ref64).abs().max().item() / top64
-                del ref64
-                log(f"[kernels] K2 fp32 x[{B},{hw},{hw},{cin}] -> {cout}: "
-                    f"drift from float64 {drift:.3g} (cuDNN fp32 "
-                    f"{drift_lib:.3g})")
-                s = summary["fused_modconv3x3"]
-                s["drift_vs_float64"] = max(s["drift_vs_float64"], drift)
-                s["cudnn_drift_vs_float64"] = max(
-                    s["cudnn_drift_vs_float64"], drift_lib)
-            if not fp32:
-                s = summary["fused_modconv3x3"]
-                s["bf16_ms"] += ms
-                s["bf16_plain_ms"] += plain
-                s["bf16_library_ms"] += lib
-                s["bf16_bound_ms"] += b_ms
-                s["bf16_max_abs_err"] = max(s["bf16_max_abs_err"], err)
-            else:
-                # K2's backward (conv input gradient, K1 bwd with h, conv
-                # weight gradient) against the plain composition's autograd
-                # backward
-                ins = [a.detach().requires_grad_() for a in args]
-                dy = rand(B, hw, hw, cout, dtype=dtype)
-                out = fused_modconv.fused_modconv3x3(*ins)
-                ref = fused_modconv.reference_modconv3x3(*ins)
-                bwd = cuda_ms(lambda: torch.autograd.grad(
-                    out, ins, dy, retain_graph=True), iters)
-                plain_bwd = cuda_ms(lambda: torch.autograd.grad(
-                    ref, ins, dy, retain_graph=True), iters)
-                log(f"[kernels] K2 backward fp32 x[{B},{hw},{hw},{cin}] -> "
-                    f"{cout}: Function bwd_ms {bwd:.4f} plain autograd "
-                    f"bwd_ms {plain_bwd:.4f}")
-                s = summary["fused_modconv3x3"]
-                s["ms"] += ms
-                s["plain_ms"] += plain
-                s["library_ms"] += lib
-                s["bound_ms"] += b_ms
-                s["bound_ms_fp32_cuda_cores"] += bound(
-                    n_bytes, flops, H100_FP32_FLOPS)[0]
-                s["bwd_ms"] += bwd
-                s["plain_bwd_ms"] += plain_bwd
-                s["max_abs_err"] = max(s["max_abs_err"], err)
-                del ins, out, ref
-        seen = {}
-        for (hw, c) in k1_step:
-            seen[(hw, c)] = seen.get((hw, c), 0) + 1
-        for (hw, c), n_step in seen.items():
-            check_k1(summary, B, hw, c, n_step, k1_path.count((hw, c)),
-                     dtype, rand)
-    for key in ("fused_double_affine_leaky", "fused_double_affine_leaky_bwd"):
-        s = summary[key]
-        log(f"[kernels] {key} over the {len(k1_step)} DFBlock inputs: fp32 "
-            f"device_ms {s['ms']:.4f} call_ms {s['call_ms']:.4f} bound_ms "
-            f"{s['bound_ms']:.4f} plain_ms {s['plain_ms']:.4f}; bf16 "
-            f"device_ms {s['bf16_ms']:.4f} call_ms {s['bf16_call_ms']:.4f} "
-            f"bound_ms {s['bf16_bound_ms']:.4f}")
-    s = summary["fused_modconv3x3"]
-    log(f"[kernels] K2 per served forward ({len(k2_shapes)} DFBlocks): fp32 "
-        f"kernel_ms {s['ms']:.4f} plain_ms {s['plain_ms']:.4f} library_ms "
-        f"{s['library_ms']:.4f} bound_ms {s['bound_ms']:.4f} (3xTF32; "
-        f"{s['bound_ms_fp32_cuda_cores']:.4f} on the fp32 CUDA cores); bf16 "
-        f"kernel_ms {s['bf16_ms']:.4f} plain_ms {s['bf16_plain_ms']:.4f} "
-        f"library_ms {s['bf16_library_ms']:.4f} bound_ms "
-        f"{s['bf16_bound_ms']:.4f}")
+                "call bit-equal")
+            s = summary["fused_modconv3x3"]
+            key = "max_abs_err" if fp32 else "bf16_max_abs_err"
+            s[key] = max(s[key], err)
+        for (hw, c) in dict.fromkeys(k1_step):
+            check_k1(summary, B, hw, c, dtype, rand)
     return summary, len(k2_shapes), len(k1_path)
 
 
-def check_k1(summary, B, hw, c, n_step, n_served, dtype, rand):
+def check_k1(summary, B, hw, c, dtype, rand):
     """Phase 2, K1 and K1 bwd at one DFBlock input [B, hw, hw, c]: held
     against the plain versions, K1 bwd's z against K1's output and a
-    second call bit for bit; timed as device time (CUDA graph) and as
-    eager calls; added into the summaries `n_step` times (per train step)
-    and `n_served` times (per served forward)."""
+    second call bit for bit."""
     import torch
 
     from gan_codes_tpu_torch.ops.kernels import fused_affine as fa
@@ -619,67 +425,16 @@ def check_k1(summary, B, hw, c, n_step, n_served, dtype, rand):
             torch.equal(a, b) for a, b in zip(got, no_z)):
         raise AssertionError(f"K1 bwd {tag}: a second call, or the call "
                              "without z, differs")
-    del got, again, no_z
-    calls = {
-        "fwd": lambda: fa.fused_double_affine_leaky(x, *vecs),
-        "bwd_z": lambda: fa.fused_double_affine_leaky_bwd(x, *vecs, dy,
-                                                          want_z=True),
-        "bwd": lambda: fa.fused_double_affine_leaky_bwd(x, *vecs, dy)}
-    iters = 20 if hw >= 128 else 50
-    dev_ms = {k: graph_ms(fn) for k, fn in calls.items()}
-    call_ms = {k: cuda_ms(fn, iters) for k, fn in calls.items()}
-    plain = cuda_ms(lambda: fa.reference_double_affine_leaky(x, *vecs), iters)
-    bplain = cuda_ms(lambda: fa.reference_double_affine_leaky_bwd(
-        x, *vecs, dy, want_z=True), iters)
-    n = x.numel() * x.element_size()
-    # bytes: forward 2N (read x, write out), backward 3N (read x and dy,
-    # write dx), with z 4N; the [B, C] vectors are negligible
-    bounds = {k: bound(m * n, f * x.numel(), H100_FP32_FLOPS)
-              for k, m, f in (("fwd", 2, 6.0), ("bwd", 3, 20.0),
-                              ("bwd_z", 4, 22.0))}
-    plan = fa._plan(B, hw * hw, c, dtype)
-    clusters = fa.max_active_clusters(plan, dtype)
     top = ref.float().abs().max().item()
-    log(f"[kernels] K1 {name} x[{B},{hw},{hw},{c}] (x{n_step} per step, "
-        f"{n_served} per served forward): max_abs_err {err:.3g} "
-        f"max_rel_err {err / top:.3g} | device_ms {dev_ms['fwd']:.4f} "
-        f"call_ms {call_ms['fwd']:.4f} plain_ms {plain:.4f} bound_ms "
-        f"{bounds['fwd'][0]:.4f} ({bounds['fwd'][1]}) | "
-        f"{2 * n / dev_ms['fwd'] / 1e6:.0f} GB/s")
-    log(f"[kernels] K1 bwd {name} x[{B},{hw},{hw},{c}] (x{n_step} per "
-        f"step; {plan}, {plan.blocks(B)} blocks, the card holds "
-        f"{clusters} clusters of {plan.split}): max_abs_err dx "
-        f"{err_dx:.3g} dg/db {err_v:.3g}, z bit-equal | with z device_ms "
-        f"{dev_ms['bwd_z']:.4f} call_ms {call_ms['bwd_z']:.4f} bound_ms "
-        f"{bounds['bwd_z'][0]:.4f} ({bounds['bwd_z'][1]}) "
-        f"{4 * n / dev_ms['bwd_z'] / 1e6:.0f} GB/s | without z device_ms "
-        f"{dev_ms['bwd']:.4f} call_ms {call_ms['bwd']:.4f} bound_ms "
-        f"{bounds['bwd'][0]:.4f} {3 * n / dev_ms['bwd'] / 1e6:.0f} GB/s | "
-        f"plain_ms {bplain:.4f}")
-    f, b = (summary["fused_double_affine_leaky"],
-            summary["fused_double_affine_leaky_bwd"])
-    if not fp32:
-        f["bf16_ms"] += n_step * dev_ms["fwd"]
-        f["bf16_call_ms"] += n_step * call_ms["fwd"]
-        f["bf16_bound_ms"] += n_step * bounds["fwd"][0]
-        b["bf16_ms"] += n_step * dev_ms["bwd_z"]
-        b["bf16_call_ms"] += n_step * call_ms["bwd_z"]
-        b["bf16_bound_ms"] += n_step * bounds["bwd_z"][0]
-        return
-    f["ms"] += n_step * dev_ms["fwd"]
-    f["call_ms"] += n_step * call_ms["fwd"]
-    f["plain_ms"] += n_step * plain
-    f["bound_ms"] += n_step * bounds["fwd"][0]
-    f["ms_per_served_forward"] += n_served * dev_ms["fwd"]
-    f["max_abs_err"] = max(f["max_abs_err"], err)
-    b["ms"] += n_step * dev_ms["bwd_z"]
-    b["call_ms"] += n_step * call_ms["bwd_z"]
-    b["plain_ms"] += n_step * bplain
-    b["bound_ms"] += n_step * bounds["bwd_z"][0]
-    b["no_z_ms"] += n_step * dev_ms["bwd"]
-    b["no_z_call_ms"] += n_step * call_ms["bwd"]
-    b["no_z_bound_ms"] += n_step * bounds["bwd"][0]
-    b["max_abs_err"] = max(b["max_abs_err"], err_dx, err_v)
+    log(f"[kernels] K1 {name} x[{B},{hw},{hw},{c}]: max_abs_err {err:.3g} "
+        f"max_rel_err {err / top:.3g} | K1 bwd max_abs_err dx "
+        f"{err_dx:.3g} dg/db {err_v:.3g}, z bit-equal, second call and the "
+        "call without z bit-equal")
+    if fp32:
+        f, b = (summary["fused_double_affine_leaky"],
+                summary["fused_double_affine_leaky_bwd"])
+        f["max_abs_err"] = max(f["max_abs_err"], err)
+        b["max_abs_err"] = max(b["max_abs_err"], err_dx, err_v)
 
 
 def resblock_shapes(gcfg):
@@ -691,11 +446,9 @@ def resblock_shapes(gcfg):
 def check_resblock(gcfg):
     """Phase 2, K3: `fused_resblock_g` at every residual-block shape of the
     generator, batch 8, fp32 (TF32 off) and bf16, against its plain
-    version and a second call bit for bit; its time beside the plain
-    version's, the composition's (the port's current way to compute the
-    block) and its bound by route; its fp32 backward against the plain
-    composition's autograd. Returns the summary entry and the number of K3
-    launches the phase made."""
+    version and a second call bit for bit; its fp32 backward against the
+    plain composition's autograd. Returns the summary entry and the number
+    of K3 launches the phase made."""
     import torch
 
     from gan_codes_tpu_torch.ops.kernels import fused_resblock as fr
@@ -706,13 +459,7 @@ def check_resblock(gcfg):
     before = fr.fused_resblock_g.launches
     s = dict(route="cuda", source="gan_codes_tpu_torch/csrc/fused_resblock.cu",
              replaces="gan_codes_tpu/ops/pallas/fused_resblock.py:157",
-             ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
-             composition_ms=0.0, max_abs_err=0.0, bound_by="operations",
-             bwd_ms=0.0, plain_bwd_ms=0.0, bf16_ms=0.0, bf16_plain_ms=0.0,
-             bf16_composition_ms=0.0, bf16_bound_ms=0.0,
-             bf16_max_abs_err=0.0, bound_ms_fp32_cuda_cores=0.0,
-             per="7-block set (one 256px generator forward's blocks)",
-             path_shapes=len(gcfg.block_channels))
+             max_abs_err=0.0, bf16_max_abs_err=0.0)
 
     def rand(*shape, dtype, scale=1.0):
         return (torch.randn(*shape, device=dev, generator=gen) * scale
@@ -721,7 +468,6 @@ def check_resblock(gcfg):
     for dtype in (torch.float32, torch.bfloat16):
         fp32 = dtype == torch.float32
         name = "fp32" if fp32 else "bf16"
-        esize = 4 if fp32 else 2
         for hw, cin, cout in resblock_shapes(gcfg):
             sc = cin != cout
             args = ([rand(B, hw, hw, cin, dtype=dtype)]
@@ -748,45 +494,13 @@ def check_resblock(gcfg):
             if not torch.equal(out, again):
                 raise AssertionError(f"K3 {name} {(B, hw, hw, cin, cout)}: "
                                      "a second call differs")
-            plan = fr._plan(B, hw, hw, cin, cout, dtype, sc)
             top = ref.float().abs().max().item()
-            iters = 5 if hw >= 128 else 10
-            with torch.no_grad():
-                ms = cuda_ms(lambda: fr.fused_resblock_g(*args), iters)
-                plain = cuda_ms(lambda: fr.reference_resblock_g(*args),
-                                iters)
-                comp = cuda_ms(lambda: fr._composition(*args), iters)
-            n_bytes = sum(a.numel() for a in args if a is not None) * esize \
-                + B * hw * hw * cout * esize
-            flops = 2.0 * B * hw * hw * cout * (9 * cin + 9 * cout
-                                                + (cin if sc else 0))
-            # fp32: 3xTF32 runs three TF32 tensor-core products a product
-            b_ms, b_by = (bound(n_bytes, 3 * flops, H100_TF32_TENSOR_FLOPS)
-                          if fp32 else
-                          bound(n_bytes, flops, H100_BF16_TENSOR_FLOPS))
             log(f"[kernels] K3 {name} x[{B},{hw},{hw},{cin}] -> {cout}"
                 f"{' +1x1' if sc else ''}: max_abs_err {err:.3g} "
-                f"max_rel_err {err / top:.3g}, second call bit-equal | "
-                f"kernel_ms {ms:.4f} plain_ms {plain:.4f} composition_ms "
-                f"{comp:.4f} bound_ms {b_ms:.4f} ({b_by}) | "
-                f"{flops / ms / 1e9:.1f} TFLOP/s | plan: tile "
-                f"{plan.th}x{plan.tw}, N {plan.nt * 32} x {plan.n_tiles}, "
-                f"{plan.blocks} blocks, m64 tiles {plan.m1}+{plan.m2}, "
-                f"{plan.stages} stages, {plan.smem} B shared, conv1 share "
-                f"{plan.conv1_share:.3f}")
+                f"max_rel_err {err / top:.3g}, second call bit-equal")
             if not fp32:
-                s["bf16_ms"] += ms
-                s["bf16_plain_ms"] += plain
-                s["bf16_composition_ms"] += comp
-                s["bf16_bound_ms"] += b_ms
                 s["bf16_max_abs_err"] = max(s["bf16_max_abs_err"], err)
                 continue
-            s["bound_ms_fp32_cuda_cores"] += bound(n_bytes, flops,
-                                                   H100_FP32_FLOPS)[0]
-            s["ms"] += ms
-            s["plain_ms"] += plain
-            s["composition_ms"] += comp
-            s["bound_ms"] += b_ms
             s["max_abs_err"] = max(s["max_abs_err"], err)
             # backward: the Function (recompute with K1 + cuDNN, K1 bwd)
             # against the plain composition's autograd, every input's
@@ -808,24 +522,9 @@ def check_resblock(gcfg):
                     raise AssertionError(f"K3 backward input {i} at "
                                          f"{(B, hw, hw, cin, cout)}: max|err|"
                                          f" {e} max|ref| {t}")
-            bwd = cuda_ms(lambda: torch.autograd.grad(
-                out, leaves, dy, retain_graph=True), iters)
-            plain_bwd = cuda_ms(lambda: torch.autograd.grad(
-                ref, leaves, dy, retain_graph=True), iters)
-            s["bwd_ms"] += bwd
-            s["plain_bwd_ms"] += plain_bwd
             log(f"[kernels] K3 backward fp32 x[{B},{hw},{hw},{cin}] -> "
-                f"{cout}: worst per-input max|err|/max|ref| {worst:.3g}; "
-                f"Function bwd_ms {bwd:.4f} plain autograd bwd_ms "
-                f"{plain_bwd:.4f}")
+                f"{cout}: worst per-input max|err|/max|ref| {worst:.3g}")
             del ins, leaves, out, ref, got, want
-    log(f"[kernels] K3 per 7-block set: fp32 kernel_ms {s['ms']:.3f} "
-        f"plain_ms {s['plain_ms']:.3f} composition_ms "
-        f"{s['composition_ms']:.3f} bound_ms {s['bound_ms']:.3f} (3xTF32; "
-        f"{s['bound_ms_fp32_cuda_cores']:.3f} on the fp32 CUDA cores); bf16 "
-        f"kernel_ms {s['bf16_ms']:.3f} plain_ms {s['bf16_plain_ms']:.3f} "
-        f"composition_ms {s['bf16_composition_ms']:.3f} bound_ms "
-        f"{s['bf16_bound_ms']:.4f}")
     return s, fr.fused_resblock_g.launches - before
 
 
@@ -906,7 +605,7 @@ def get(url: str, path: str) -> dict:
 
 
 def serve(root: str, k2_per_forward: int, k1_per_forward: int):
-    """Phase 3. Returns (K2 launches, K1 launches, served numbers)."""
+    """Phase 3. Returns (K2 launches, K1 launches)."""
     from unittest import mock
 
     import torch
@@ -922,16 +621,16 @@ def serve(root: str, k2_per_forward: int, k1_per_forward: int):
             os.path.join(root, "weights"))
     sampler, epoch = serve_mod.build_sampler(*args, batch_size=16)
     gcfg = sampler.cfg.generator
+    sampler.warmup()
     log(f"[serve] gen_{epoch}.pth: {gcfg.image_size}px n_channels "
         f"{gcfg.n_channels}, {sum(p.numel() for p in sampler.generator.parameters())} "
-        f"G params; warmup {sampler.warmup():.2f}s")
+        "G params")
     server = serve_mod.make_http_server(sampler, port=0, epoch=epoch)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}"
     bs = sampler.batch_size
     batches = 0
-    latencies = []
     try:
         K2.launches = K1.launches = 0  # main path starts here
         # free-text prompts -> PNG
@@ -956,12 +655,9 @@ def serve(root: str, k2_per_forward: int, k1_per_forward: int):
         img = Image.open(io.BytesIO(base64.b64decode(body["images"][-1])))
         if img.format != "JPEG" or img.size != (256, 256):
             raise AssertionError(f"bad JPEG {img.format} {img.size}")
-        # single-prompt request latency (host clock, request to response),
-        # one request at a time
-        for _ in range(LATENCY_REQUESTS):
-            t0 = time.perf_counter()
+        # single-prompt requests, one at a time
+        for _ in range(SINGLE_REQUESTS):
             code, body = post(url, {"prompts": ["a bird"]})
-            latencies.append((time.perf_counter() - t0) * 1e3)
             batches += 1
             if code != 200 or body["count"] != 1:
                 raise AssertionError(f"single prompt: {code}")
@@ -974,11 +670,12 @@ def serve(root: str, k2_per_forward: int, k1_per_forward: int):
         thread.join(30)
     if health["status"] != "ok" or health["image_size"] != 256:
         raise AssertionError(f"/healthz {health}")
-    if (metrics["generate_ok"] != 2 + LATENCY_REQUESTS
-            or metrics["images_total"] != 23 + LATENCY_REQUESTS):
+    if (metrics["generate_ok"] != 2 + SINGLE_REQUESTS
+            or metrics["images_total"] != 23 + SINGLE_REQUESTS):
         raise AssertionError(f"/metrics {metrics}")
     log(f"[serve] {batches} batches dispatched over HTTP: K2 launches {k2}, "
-        f"K1 launches {k1}; /metrics {metrics}")
+        f"K1 launches {k1}; /metrics generate_ok {metrics['generate_ok']}, "
+        f"images_total {metrics['images_total']}")
     if k2 != k2_per_forward * batches or k1 != k1_per_forward * batches:
         raise AssertionError(
             f"launch counters K2 {k2} K1 {k1} != {k2_per_forward} and "
@@ -1004,41 +701,17 @@ def serve(root: str, k2_per_forward: int, k1_per_forward: int):
         f"{e2e_err:.3g}; image std {out.std().item():.3f}")
     if not torch.allclose(out, ref, atol=1e-3, rtol=1e-3):
         raise AssertionError(f"served batch differs from plain: {e2e_err}")
-
-    lat = np.asarray(latencies)
-    numbers = {"single_request_ms": {
-                   "n": len(lat), "p50": float(np.percentile(lat, 50)),
-                   "p99": float(np.percentile(lat, 99)),
-                   "mean": float(lat.mean()), "min": float(lat.min()),
-                   "max": float(lat.max())},
-               "e2e_max_abs_err": e2e_err,
-               "profile": profile_breakdown(sampler, captions, cap_lens,
-                                            noise)}
-    log(f"[serve] single-request latency over {len(lat)} requests: "
-        f"{json.dumps(numbers['single_request_ms'])}")
-    for dtype in ("float32", "bfloat16"):
-        for b in (16, 64):
-            s = sampler if (dtype, b) == ("float32", 16) else \
-                serve_mod.build_sampler(*args, batch_size=b, dtype=dtype)[0]
-            windows = [s.throughput(n_batches=THROUGHPUT_BATCHES[b])
-                       for _ in range(THROUGHPUT_WINDOWS)]
-            numbers[f"img_per_s_{dtype}_bs{b}"] = windows
-            log(f"[serve] Sampler.throughput {dtype} batch {b}, "
-                f"{THROUGHPUT_WINDOWS} windows of {THROUGHPUT_BATCHES[b]} "
-                f"batches ({THROUGHPUT_BATCHES[b] * b / min(windows):.1f} s "
-                f"at most): {', '.join(f'{v:.1f}' for v in windows)} img/s")
-            if (dtype, b) == ("bfloat16", 16):
-                outb = s.pipeline(captions, cap_lens, noise).float()
-                log(f"[serve] bf16 batch vs fp32 kernel path: max_abs_err "
-                    f"{(outb - out).abs().max().item():.3g}")
-            del s
-    return k2, k1, numbers
+    bf16 = serve_mod.build_sampler(*args, batch_size=bs, dtype="bfloat16")[0]
+    outb = bf16.pipeline(captions, cap_lens, noise).float()
+    log(f"[serve] bf16 batch vs fp32 kernel path: max_abs_err "
+        f"{(outb - out).abs().max().item():.3g}")
+    bf16.throughput(n_batches=2)  # its card-only branch, CUDA events
+    return k2, k1
 
 
 BURST = 16                       # phase 3b: concurrent one-prompt requests
 COALESCE_S = 0.05                # phase 3b: the window, --coalesce-ms 50
 WATCH_S = 0.2                    # phase 3b: the poll, --watch 0.2
-DP_SERVE_BATCHES = {16: 100, 64: 30}  # phase 3b: batches a window
 
 
 def _write_gen(weights: str, name: str, seed: int) -> None:
@@ -1052,30 +725,21 @@ def _write_gen(weights: str, name: str, seed: int) -> None:
 
 
 def _burst(url: str, n: int):
-    """n one-prompt requests sent at once: (wall s, latencies ms, codes)."""
-    lat, codes = [0.0] * n, [None] * n
+    """n one-prompt requests sent at once: their codes."""
+    codes = [None] * n
 
     def one(i):
-        t = time.perf_counter()
         try:
             codes[i] = post(url, {"prompts": ["a small red bird"]})[0]
         except Exception as e:  # the gate below reports it
             codes[i] = repr(e)
-        lat[i] = (time.perf_counter() - t) * 1e3
 
     threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
-    t0 = time.perf_counter()
     for th in threads:
         th.start()
     for th in threads:
         th.join(300)
-    return time.perf_counter() - t0, lat, codes
-
-
-def _pcts(ms) -> dict:
-    ms = np.asarray(ms)
-    return {"p50": float(np.percentile(ms, 50)),
-            "p99": float(np.percentile(ms, 99)), "max": float(ms.max())}
+    return codes
 
 
 def _running(server) -> str:
@@ -1089,7 +753,7 @@ def _closed(server) -> None:
 
 
 def serve_rest(root: str, k2_per_forward: int, k1_per_forward: int):
-    """Phase 3b. Returns ({path: (K2, K1) launches}, numbers)."""
+    """Phase 3b. Returns {path: (K2, K1) launches}."""
     import torch
 
     from gan_codes_tpu_torch import serve as serve_mod
@@ -1113,7 +777,7 @@ def serve_rest(root: str, k2_per_forward: int, k1_per_forward: int):
     cap_lens = tok.integers(1, 19, (bs,))
     noise = torch.randn((bs, 100), device="cuda",
                         generator=torch.Generator("cuda").manual_seed(SEED))
-    numbers, launches = {}, {}
+    launches = {}
 
     def on_file(name: str):
         return serve_mod.Sampler(
@@ -1138,63 +802,33 @@ def serve_rest(root: str, k2_per_forward: int, k1_per_forward: int):
     log("[serve-rest] (a) build_sampler(use_ema=True) serves "
         "gen_ema_2.pth: a batch equals a sampler on it bit for bit")
 
-    # (b) POST /reload under traffic; the restore (outside the dispatch
-    # lock) and the swap (inside it) timed apart. The swap is the host's
-    # time under the lock (no synchronize: the lock is not held for the
-    # batch in flight) and its copies' device time (CUDA events around
-    # them, read after the server closes)
-    parts = {"restore_ms": [], "swap_host_ms": [], "swap_device_ms": []}
-    swap_events = []
-
-    def timed_reloader(epoch=None):
-        t = time.perf_counter()
-        out = sampler.reload_generator(epoch=epoch)
-        parts["restore_ms"].append((time.perf_counter() - t) * 1e3)
-        return out
-
-    def timed_swap(state_dict):
-        t = time.perf_counter()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        serve_mod.Sampler.swap_generator_params(sampler, state_dict)
-        ev[1].record()
-        parts["swap_host_ms"].append((time.perf_counter() - t) * 1e3)
-        swap_events.append(ev)
-
-    sampler.swap_generator_params = timed_swap
+    # (b) POST /reload under traffic
     server = serve_mod.make_http_server(sampler, port=0, epoch=epoch,
-                                        reloader=timed_reloader)
+                                        reloader=sampler.reload_generator)
     url = _running(server)
     traffic, pause = threading.Event(), threading.Lock()
-    client = {"codes": [], "ms": [], "spans": []}
+    codes = []
 
     def client_loop():
         while traffic.is_set():
             with pause:
-                t = time.perf_counter()
                 try:
                     code = post(url, {"prompts": ["a small red bird"]})[0]
                 except Exception as e:  # the gate below reports it
                     code = repr(e)
-                client["codes"].append(code)
-                client["ms"].append((time.perf_counter() - t) * 1e3)
-                client["spans"].append((t, time.perf_counter()))
+                codes.append(code)
 
     traffic.set()
     compared = [0, 0]  # K2, K1 of the comparisons, which are not served
     K2.launches = K1.launches = 0  # main path starts here
     th = threading.Thread(target=client_loop)
     th.start()
-    reload_ms, windows = [], []
     try:
         time.sleep(0.3)
         for payload, want, pinned, name in (({}, 2, False, "gen_2.pth"),
                                             ({"epoch": 1}, 1, True,
                                              "gen_1.pth")):
-            t = time.perf_counter()
             code, body = post(url, payload, "/reload")
-            windows.append((t, time.perf_counter()))
-            reload_ms.append((windows[-1][1] - t) * 1e3)
             if (code, body["epoch"], body["pinned"]) != (200, want, pinned):
                 raise AssertionError(f"POST /reload {payload}: {code} {body}")
             time.sleep(0.3)  # traffic on the new weights
@@ -1211,33 +845,18 @@ def serve_rest(root: str, k2_per_forward: int, k1_per_forward: int):
         traffic.clear()
         th.join(60)
         _closed(server)
-        del sampler.swap_generator_params
     k2, k1 = K2.launches - compared[0], K1.launches - compared[1]  # ends
-    torch.cuda.synchronize()
-    parts["swap_device_ms"] = [a.elapsed_time(b) for a, b in swap_events]
-    n = len(client["codes"])
-    bad = [c for c in client["codes"] if c != 200]
+    n = len(codes)
+    bad = [c for c in codes if c != 200]
     if m["reloads_total"] != 2 or bad or n < 10 or \
             (k2, k1) != (k2_per_forward * n, k1_per_forward * n):
         raise AssertionError(f"/reload under traffic: reloads_total "
                              f"{m['reloads_total']}, {n} requests, not 200: "
                              f"{bad[:3]}; K2 {k2}, K1 {k1}")
     launches["serve_reload"] = (k2, k1)
-    overlapping = [ms for ms, (a, b) in zip(client["ms"], client["spans"])
-                   if any(a < w1 and b > w0 for w0, w1 in windows)]
-    numbers["reload"] = dict(parts, reload_ms=reload_ms,
-                             requests=len(client["codes"]),
-                             request_ms=_pcts(client["ms"]),
-                             during_reload_ms=overlapping)
     log(f"[serve-rest] (b) POST /reload {{}} -> epoch 2, {{\"epoch\": 1}} -> "
         f"pinned epoch 1, each then equal to a sampler on its file bit for "
-        f"bit; reload wall ms {['%.1f' % x for x in reload_ms]} (restore "
-        f"{['%.1f' % x for x in parts['restore_ms']]}, swap under the lock "
-        f"{['%.2f' % x for x in parts['swap_host_ms']]} host, its copies "
-        f"{['%.3f' % x for x in parts['swap_device_ms']]} device); "
-        f"{len(client['codes'])} one-prompt requests alongside, all 200, "
-        f"ms {json.dumps(numbers['reload']['request_ms'])}, those "
-        f"overlapping a reload {['%.1f' % x for x in overlapping]}")
+        f"bit; {n} one-prompt requests alongside, all 200")
 
     # (c) --watch
     server = serve_mod.make_http_server(
@@ -1254,7 +873,6 @@ def serve_rest(root: str, k2_per_forward: int, k1_per_forward: int):
                     raise AssertionError(f"--watch: epoch {want} not served "
                                          "within 10 s")
                 time.sleep(0.02)
-        watch_s = time.perf_counter() - t
         code, _ = post(url, {"epoch": 3}, "/reload")
         _write_gen(weights, "gen_4.pth", SEED + 14)
         time.sleep(1.0)
@@ -1264,10 +882,9 @@ def serve_rest(root: str, k2_per_forward: int, k1_per_forward: int):
     if code != 200 or (h["epoch"], h["pinned"]) != (3, True):
         raise AssertionError(f"--watch: the pin on epoch 3 did not hold "
                              f"against gen_4.pth: {h}")
-    numbers["watch_s"] = watch_s
     log(f"[serve-rest] (c) --watch {WATCH_S}: gen_3.pth (temp + rename) "
-        f"served after {watch_s:.3f} s; the pin on epoch 3 held against "
-        f"gen_4.pth for 1 s")
+        "served within 10 s; the pin on epoch 3 held against gen_4.pth for "
+        "1 s")
 
     # (d) --coalesce-ms: one burst coalesced, the same burst without
     for window in (COALESCE_S, None):
@@ -1276,7 +893,7 @@ def serve_rest(root: str, k2_per_forward: int, k1_per_forward: int):
         url = _running(server)
         try:
             K2.launches = K1.launches = 0  # main path starts here
-            wall, ms, codes = _burst(url, BURST)
+            codes = _burst(url, BURST)
             k2, k1 = K2.launches, K1.launches  # main path ends here
             m = get(url, "/metrics")
         finally:
@@ -1288,25 +905,20 @@ def serve_rest(root: str, k2_per_forward: int, k1_per_forward: int):
                                  f"{n} dispatches, K2 {k2}, K1 {k1}")
         key = "coalesced" if window else "plain"
         launches[f"serve_burst_{key}"] = (k2, k1)
-        numbers[f"burst_{key}"] = {"wall_s": wall, "dispatches": n,
-                                   "request_ms": _pcts(ms)}
-    log(f"[serve-rest] (d) {BURST} one-prompt requests at once: coalesced "
-        f"({COALESCE_S * 1e3:.0f} ms) {json.dumps(numbers['burst_coalesced'])}"
-        f"; without {json.dumps(numbers['burst_plain'])}")
+        log(f"[serve-rest] (d) {BURST} one-prompt requests at once, {key}: "
+            f"all 200, {n} dispatches")
 
     # (e) data-parallel serving: two replicas on the one card, and the
     # CLI's --dp (every card: one here), against the plain sampler
-    def trio(b):
-        plain = serve_mod.build_sampler(*args, batch_size=b, seed=SEED)[0]
-        dp1 = serve_mod.build_sampler(*args, batch_size=b, seed=SEED,
-                                      data_parallel=True)[0]
-        dp2 = serve_mod.Sampler(
+    plain = serve_mod.build_sampler(*args, batch_size=bs, seed=SEED)[0]
+    samplers = {
+        "plain": plain,
+        "dp1": serve_mod.build_sampler(*args, batch_size=bs, seed=SEED,
+                                       data_parallel=True)[0],
+        "dp2": serve_mod.Sampler(
             plain.cfg, load_generator(os.path.join(weights, "gen_4.pth"))[0],
-            plain.text_encoder, batch_size=b, seed=SEED,
-            devices=["cuda:0", "cuda:0"])
-        return {"plain": plain, "dp1": dp1, "dp2": dp2}
-
-    samplers = trio(bs)
+            plain.text_encoder, batch_size=bs, seed=SEED,
+            devices=["cuda:0", "cuda:0"])}
     caps = np.concatenate([captions, captions[:4]])  # 20 rows: 2 batches
     lens = np.concatenate([cap_lens, cap_lens[:4]])
     want = samplers["plain"].generate_tokens(caps, lens)
@@ -1323,126 +935,20 @@ def serve_rest(root: str, k2_per_forward: int, k1_per_forward: int):
             raise AssertionError(f"{key}: max|err| {errs[key]}, K2 {k2}, "
                                  f"K1 {k1} over 2 batches x {reps} replicas")
         launches[f"serve_{key}"] = (k2, k1)
-    profiles = {}
-    for key in ("plain", "dp2"):  # the device's view of one batch of 16
-        res = _profile(lambda: samplers[key]._launch(captions, cap_lens,
-                                                     noise), 3)
-        profiles[key] = res and {k: res[0][k] for k in (
-            "kernels_per_call", "device_busy_ms_per_call",
-            "span_ms_per_call", "idle_share")}
-    img_s = {}
-    for b in (16, 64):
-        s = samplers if b == bs else trio(b)
-        order = ["plain", "dp1", "dp2", "dp2", "dp1", "plain"]
-        for key in order:
-            img_s.setdefault(f"{key}_bs{b}", []).append(
-                s[key].throughput(n_batches=DP_SERVE_BATCHES[b]))
-        del s
-    numbers["dp"] = {"max_abs_err": errs, "img_per_s": img_s,
-                     "profile_bs16": profiles}
+    for key in ("plain", "dp2"):  # throughput's card-only branch, a pair
+        # of CUDA events on each replica's card
+        samplers[key].throughput(n_batches=2)
     log(f"[serve-rest] (e) 20 rows (2 batches of 16): dp1 (the CLI's --dp "
         f"here: {[str(d) for d, _, _ in samplers['dp1'].replicas]}) and dp2 "
         f"([cuda:0, cuda:0]) against the plain "
-        f"sampler max|err| {json.dumps(errs)}; img/s (windows plain, dp1, "
-        f"dp2, dp2, dp1, plain): {json.dumps(img_s)}; a batch of 16 "
-        f"(profiler): {json.dumps(profiles)}")
-    del samplers
+        f"sampler max|err| {json.dumps(errs)}")
+    del samplers, plain
     out = os.path.join(root, "served_dp")
     paths = serve_mod.main(*args, out, ["a small red bird", "a blue bird"],
                            batch_size=bs, data_parallel=True)
     if len(paths) != 2 or not all(os.path.exists(p) for p in paths):
         raise AssertionError(f"serve.main(data_parallel=True): {paths}")
-    return launches, numbers
-
-
-def _group(name: str) -> str:
-    low = name.lower()
-    if "nccl" in low:
-        return "NCCL collectives"
-    if "fused_modconv3x3" in name:  # the conv, its weight pack, split K
-        return "K2 fused_modconv3x3"
-    if "fused_affine_fwd_kernel" in name:
-        return "K1 fused_double_affine_leaky"
-    if "fused_affine_bwd" in name:
-        return "K1 bwd fused_double_affine_leaky_bwd"
-    if "lstm" in low or "rnn" in low:
-        return "LSTM (text encoder)"
-    if "multi_tensor_apply" in low or "foreach" in low:
-        return "optimizer (foreach Adam, clip, EMA)"
-    if "dgrad" in low:
-        return "cuDNN conv dgrad"
-    if "wgrad" in low:
-        return "cuDNN conv wgrad"
-    if "fprop" in low or "conv" in low:
-        return "cuDNN conv fwd"
-    if "nchwtonhwc" in low or "nhwctonchw" in low:
-        return "copies"
-    if "gemm" in low or "cutlass" in low or "xmma" in low:
-        return "GEMM (affine MLPs, linear_in)"
-    if "copy" in low or "memset" in low or "memcpy" in low:
-        return "copies"
-    return "other elementwise"
-
-
-def _profile(fn, n: int, by_name: bool = False):
-    """Device time per kernel group and per kernel name over `n` calls of
-    `fn`, and the device's idle share of the span from the first kernel to
-    the last (torch.profiler, CUPTI). None when no device event was
-    recorded. With `by_name`, `out["by_name"]` holds every kernel name's
-    launches and device ms a call."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    # device kernels and copies; user annotations (such as the optimizer's
-    # "Optimizer.step#Adam.step" range) are spans, not device work
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
-    if not events:
-        log("[profile] the profiler recorded no device events: device time "
-            "by kernel not measured")
-        return None
-    groups, names, launches = {}, {}, {}
-    for e in events:
-        us = e.time_range.end - e.time_range.start
-        groups[_group(e.name)] = groups.get(_group(e.name), 0.0) + us
-        names[e.name] = names.get(e.name, 0.0) + us
-        launches[e.name] = launches.get(e.name, 0) + 1
-    busy = sum(groups.values())
-    span = (max(e.time_range.end for e in events)
-            - min(e.time_range.start for e in events))
-    out = {"kernels_per_call": len(events) / n,
-           "device_busy_ms_per_call": busy / n / 1e3,
-           "span_ms_per_call": span / n / 1e3,
-           "idle_share": 1.0 - busy / span,
-           "ms_per_call": {k: v / n / 1e3 for k, v in
-                           sorted(groups.items(), key=lambda kv: -kv[1])}}
-    if by_name:
-        out["by_name"] = {k: [launches[k] / n, us / n / 1e3]
-                          for k, us in names.items()}
-    top = [(name, us / n / 1e3) for name, us in
-           sorted(names.items(), key=lambda kv: -kv[1])[:12]]
-    return out, top
-
-
-def profile_breakdown(sampler, captions, cap_lens, noise, n: int = 3):
-    """Device time of a served batch by kernel group, over `n` batches."""
-    res = _profile(lambda: sampler.pipeline(captions, cap_lens, noise), n)
-    if res is None:
-        return None
-    out, top = res
-    out = {"batch": sampler.batch_size, "dtype": str(sampler.dtype), **out}
-    log("[profile] " + json.dumps(out))
-    for name, ms in top[:8]:
-        log(f"[profile] {ms:8.3f} ms/batch  {name[:110]}")
-    return out
+    return launches
 
 
 def _train_setup(dtype: str, batch: int = TRAIN_BATCH, remat: bool = False,
@@ -1498,8 +1004,8 @@ def _counters():
 
 
 def train():
-    """Phase 4. Returns (K2, K1, K1 bwd launches over the counted steps,
-    train numbers)."""
+    """Phase 4. Returns the K2, K1 and K1 bwd launches over the counted
+    steps."""
     import torch
 
     from gan_codes_tpu_torch.ops.kernels import fused_modconv
@@ -1507,10 +1013,8 @@ def train():
     from gan_codes_tpu_torch.train import losses
 
     k2, k1, k1b = _counters()
-    numbers = {}
     counts = None
     for dtype in ("float32", "bfloat16"):
-        base = _clean_start()
         cfg, state, te, step, batch = _train_setup(dtype)
         log(f"[train] {dtype}: 256px batch {TRAIN_BATCH}, G "
             f"{sum(p.numel() for p in state.generator.parameters())} and D "
@@ -1546,71 +1050,18 @@ def train():
             log(f"[train] {dtype} step {i}: {json.dumps(r)}")
             if not all(np.isfinite(v) for v in r.values()):
                 raise AssertionError(f"non-finite metrics at step {i}: {r}")
-
-        # throughput: two windows of >= 3 s each, CUDA events; in fp32 two
-        # more between them on cuDNN's deterministic algorithms (what
-        # train_entry's `deterministic` costs)
-        t0 = time.perf_counter()
-        step(state, te, *batch)
-        torch.cuda.synchronize()
-        n = max(3, int(np.ceil(TRAIN_WINDOW_S / (time.perf_counter() - t0))))
-        torch.cuda.reset_peak_memory_stats()
-        windows = {False: [], True: []}
-        for det in ((False, True, True, False) if dtype == "float32"
-                    else (False, False)):
-            torch.backends.cudnn.deterministic = det
-            try:
-                step(state, te, *batch)  # cuDNN picks its algorithms
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(n):
-                    step(state, te, *batch)
-                end.record()
-                end.synchronize()
-            finally:
-                torch.backends.cudnn.deterministic = False
-            windows[det].append(n * TRAIN_BATCH
-                                / (start.elapsed_time(end) / 1e3))
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        numbers[f"img_per_s_{dtype}"] = windows[False]
-        numbers[f"peak_gib_{dtype}"] = peak
-        numbers[f"peak_gib_{dtype}_above_start"] = peak - base
-        det_text = ""
-        if windows[True]:
-            numbers[f"img_per_s_{dtype}_deterministic"] = windows[True]
-            det_text = (f"; deterministic cuDNN "
-                        f"{', '.join(f'{v:.2f}' for v in windows[True])}")
-        log(f"[train] {dtype} throughput, windows of {n} steps "
-            f"({n * TRAIN_BATCH / min(windows[False]):.1f} s at most): "
-            f"{', '.join(f'{v:.2f}' for v in windows[False])} img/s"
-            f"{det_text}; peak memory {peak:.2f} GiB, {peak - base:.3f} "
-            f"above the {base:.3f} GiB allocated before the state")
-        res = _profile(lambda: step(state, te, *batch), 2)
-        if res is not None:
-            out, top = res
-            out = {"batch": TRAIN_BATCH, "dtype": dtype, **out}
-            numbers[f"profile_{dtype}"] = out
-            log("[profile] train step " + json.dumps(out))
-            for name, ms in top:
-                log(f"[profile] {ms:8.3f} ms/step  {name[:110]}")
         del state, step
 
     # (a) phase 3 alone against one D: G forward + backward (the kernels'
     # backward) from one state, through the kernels and through the plain
     # versions; (b) one whole fp32 step, D learning, from one state each
     # way; (c) phase 3 again, against the D that (b)'s kernels step left
-    cfg, state, te, step, (images, captions, cap_lens) = _train_setup(
+    cfg, state, te, step, (_, captions, cap_lens) = _train_setup(
         "float32")
     noise = torch.randn((TRAIN_BATCH, cfg.generator.latent_dim),
                         generator=torch.Generator(device="cuda"
                                                   ).manual_seed(SEED),
                         device="cuda")
-    numbers["phase_ms"] = _phase_times(state, te, images, captions,
-                                       cap_lens, noise, cfg.loss)
-    numbers["penalty_ms"] = penalty_times()
-    log(f"[train] fp32 device ms by phase (CUDA events, 3 calls each): "
-        f"{json.dumps(numbers['phase_ms'])}")
 
     def phase3_grads(state):
         g_params = list(state.generator.named_parameters())
@@ -1621,7 +1072,7 @@ def train():
         return dict(zip((n for n, _ in g_params), torch.autograd.grad(
             loss, [p for _, p in g_params])))
 
-    def phase3_gap(state, what: str) -> dict:
+    def phase3_gap(state, what: str) -> None:
         grads = [_plain_or_kernels(plain, lambda: phase3_grads(state))
                  for plain in (False, True)]
         gap = _grad_gap(*grads)
@@ -1630,9 +1081,8 @@ def train():
         if gap["max_err"] > 1e-3 * gap["max_ref"]:
             raise AssertionError(f"phase-3 G gradients against {what}: "
                                  f"{gap}")
-        return gap
 
-    one_d = phase3_gap(state, "one D")
+    phase3_gap(state, "one D")
     del state, step
 
     # (b) The kernels reach the step through G's fakes and G's backward.
@@ -1643,7 +1093,7 @@ def train():
     # elements lie under 1e-7, so rounding decides the sign of a few of
     # them (3 here), which also moves d_gp_loss and g_loss: a G whose
     # rounding differs by an ulp can flip hundreds and move d_gp_loss by
-    # 0.2% (kernel_ab.py --steps diagnoses it).
+    # 0.2%.
     results = []
     for plain in (False, True):
         cfg, state, te, step, batch = _train_setup("float32")
@@ -1691,19 +1141,13 @@ def train():
     with torch.no_grad():
         for name, p in state.discriminator.named_parameters():
             p.copy_(dp_k[name])
-    learned_d = phase3_gap(state, "the D one kernels step left")
+    phase3_gap(state, "the D one kernels step left")
     del state, step
-    numbers["repeat"] = _repeatability()
-    numbers["vs_plain"] = {"kernels": m_k, "plain": m_p,
-                           "loss_rel_gaps": loss_gaps,
-                           "d_params_over_lr_4": moved,
-                           "step_d_grads": d_gap, "step_g_grads": step_gap,
-                           "one_d_g_grads": one_d,
-                           "learned_d_g_grads": learned_d}
-    return counts, numbers
+    _repeatability()
+    return counts
 
 
-def _repeatability() -> dict:
+def _repeatability() -> None:
     """REPEAT_STEPS fp32 steps, twice from one seeded state, on cuDNN's
     default and on its deterministic algorithms: the G and D parameters
     that differ between the two runs. Holds none for the deterministic
@@ -1733,7 +1177,6 @@ def _repeatability() -> dict:
     if out["deterministic"][0]:
         raise AssertionError(f"deterministic cuDNN: {out['deterministic']} "
                              "parameters differ run to run")
-    return out
 
 
 def _grad_gap(got: dict, want: dict) -> dict:
@@ -1776,135 +1219,6 @@ def _plain_or_kernels(plain: bool, fn):
         out = fn()
         if plain and [c.launches for c in counters] != before:
             raise AssertionError("the plain versions launched a kernel")
-    return out
-
-
-def _phase_times(state, te, images, captions, cap_lens, noise, loss_cfg):
-    """Device ms of each part of an fp32 step, apart (CUDA events, after a
-    warm call): the G forward + backward, the phase-1 D hinge gradient, the
-    phase-2 MA-GP gradient (double backward), and phase 3's D forward +
-    input gradient. D is not updated."""
-    import torch
-
-    from gan_codes_tpu_torch.train import losses
-
-    g, d = state.generator, state.discriminator
-    with torch.no_grad():
-        sents = te(captions, cap_lens).float()
-    fake = g(noise, sents).detach()
-    d_params, g_params = list(d.parameters()), list(g.parameters())
-
-    def g_fwd_bwd():
-        out = g(noise, sents)
-        torch.autograd.grad(out, g_params, torch.ones_like(out))
-
-    def phase1():
-        torch.autograd.grad(losses.d_hinge_loss(d, images, fake, sents),
-                            d_params)
-
-    def phase2():
-        torch.autograd.grad(
-            losses.ma_gradient_penalty(d, images, sents, loss_cfg),
-            d_params, allow_unused=True)
-
-    def phase3_d():
-        f = fake.detach().requires_grad_(True)
-        torch.autograd.grad(losses.g_hinge_loss(d, f, sents), f)
-
-    return {name: cuda_ms(fn, 3) for name, fn in (
-        ("g_fwd_bwd", g_fwd_bwd), ("phase1_d_hinge", phase1),
-        ("phase2_ma_gp", phase2), ("phase3_d", phase3_d))}
-
-
-def _penalty_grads(d, images, sents, loss_cfg, penalty: bool):
-    """MA-GP's D gradients through `losses.ma_gradient_penalty` (D's convs
-    as `ops_nn.PenaltyConv2d`) or, with `penalty` False, through
-    autograd's own double backward of `F.conv2d` (the step before
-    `PenaltyConv2d`)."""
-    import torch
-
-    from gan_codes_tpu_torch.train import losses
-
-    params = list(d.parameters())
-    if penalty:
-        gp = losses.ma_gradient_penalty(d, images, sents, loss_cfg)
-    else:
-        x = images.detach().requires_grad_(True)
-        s = sents.detach().requires_grad_(True)
-        g_img, g_sent = torch.autograd.grad(d.logits(d.embeds(x), s).sum(),
-                                            (x, s), create_graph=True)
-        gp = losses.penalty(g_img, g_sent, loss_cfg.gp_coef,
-                            loss_cfg.gp_power, loss_cfg.gp_eps,
-                            loss_cfg.gp_norm_clip)
-    return torch.autograd.grad(gp, params, allow_unused=True)
-
-
-def penalty_times(batch: int = TRAIN_BATCH) -> dict:
-    """MA-GP alone (the penalty and its D gradients) at the training
-    cells' shapes (D at 256 px, full width, `batch` images), device ms
-    (CUDA events, 5 calls after 3 warm ones) and the peak memory of one
-    call above what it starts from, through `PenaltyConv2d`
-    ("new") and through autograd's own double backward ("native"), in
-    fp32 (precision "highest") and at one TF32 pass ("high"), each with
-    its cuDNN kernels by device ms (torch.profiler), and the weight terms
-    a penalty forms (`PenaltyConv2d.weight_terms`: 19)."""
-    import torch
-
-    from gan_codes_tpu_torch.config import DiscriminatorConfig, LossConfig
-    from gan_codes_tpu_torch.models.discriminator import Discriminator
-    from gan_codes_tpu_torch.ops import nn as ops_nn
-    from gan_codes_tpu_torch.utils.device import set_matmul_precision
-
-    gen = torch.Generator().manual_seed(SEED)
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(SEED)
-        d = Discriminator(DiscriminatorConfig())
-    with torch.no_grad():
-        for name, p in d.named_parameters():
-            if name.endswith(".gamma"):
-                p.copy_(torch.rand(1, generator=gen) * 0.5 + 0.25)
-    d = d.cuda()
-    images = (torch.rand(batch, 256, 256, 3, generator=gen) * 2 - 1).cuda()
-    sents = torch.randn(batch, 256, generator=gen).cuda()
-    loss_cfg = LossConfig()
-    out = {"batch": batch}
-    for precision in ("highest", "high"):
-        previous = set_matmul_precision(precision)
-        try:
-            row = {}
-            for way, penalty in (("new", True), ("native", False)):
-                def fn(penalty=penalty):
-                    _penalty_grads(d, images, sents, loss_cfg, penalty)
-
-                ops_nn.PenaltyConv2d.weight_terms = 0
-                gc.collect()
-                torch.cuda.synchronize()
-                base = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-                fn()
-                row[f"{way}_weight_terms"] = ops_nn.PenaltyConv2d.weight_terms
-                row[f"{way}_peak_gib"] = (torch.cuda.max_memory_allocated()
-                                          - base) / 2 ** 30
-                row[f"{way}_ms"] = cuda_ms(fn, 5)
-                res = _profile(fn, 1)
-                if res is not None:
-                    row[f"{way}_top_kernels_ms"] = [
-                        [name[:80], ms] for name, ms in res[1][:6]]
-            out[precision] = row
-        finally:
-            set_matmul_precision(previous)
-        log(f"[train] MA-GP alone, {precision}, batch {batch}: "
-            f"PenaltyConv2d {row['new_ms']:.2f} ms "
-            f"({row['new_weight_terms']} weight terms, peak "
-            f"{row['new_peak_gib']:.3f} GiB above the state), autograd's own "
-            f"{row['native_ms']:.2f} ms ({row['native_weight_terms']}, "
-            f"{row['native_peak_gib']:.3f} GiB)")
-        for way in ("new", "native"):
-            for name, ms in row.get(f"{way}_top_kernels_ms", []):
-                log(f"[profile] MA-GP {precision} {way} {ms:8.3f} ms  {name}")
-    if out["highest"]["new_weight_terms"] != 19 or \
-            out["highest"]["native_weight_terms"] != 0:
-        raise AssertionError(f"weight terms a penalty: {out}")
     return out
 
 
@@ -1958,9 +1272,9 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
-def train_entry_phase(root: str, bare_img_s: float, inception_path: str):
+def train_entry_phase(root: str, inception_path: str):
     """Phase 5. Returns (K2, K1, K1 bwd launches over the three
-    `train_entry.train` calls, train-entry numbers)."""
+    `train_entry.train` calls, run A's histories)."""
     import contextlib
     from unittest import mock
 
@@ -1976,7 +1290,6 @@ def train_entry_phase(root: str, bare_img_s: float, inception_path: str):
     from gan_codes_tpu_torch.train.checkpoint import state_to_dict
     from gan_codes_tpu_torch.train.trainer import Trainer
 
-    t0 = time.perf_counter()
     data = os.path.join(root, "cub")
     info = make_synthetic_cub(data, n_train=ENTRY_TRAIN, n_test=ENTRY_TEST,
                               image_size=256, seed=SEED)
@@ -1986,8 +1299,6 @@ def train_entry_phase(root: str, bare_img_s: float, inception_path: str):
         te = RNNEncoder(cfg.text_encoder)
     te_path = os.path.join(root, "entry_text_encoder.pth")
     torch.save(te.state_dict(), te_path)
-    log(f"[entry] synthetic CUB {ENTRY_TRAIN} + {ENTRY_TEST} images and a "
-        f"text encoder in {time.perf_counter() - t0:.2f}s")
 
     class Recorded(Trainer):
         """The Trainer, keeping each instance and a snapshot of its state
@@ -2014,21 +1325,19 @@ def train_entry_phase(root: str, bare_img_s: float, inception_path: str):
                   deterministic=True)
         tee = _Tee(sys.stdout)
         k2.launches = k1.launches = k1b.launches = 0  # main path starts
-        t = time.perf_counter()
         with mock.patch.object(train_entry, "Trainer", Recorded), \
                 contextlib.redirect_stdout(tee):
             hist = train_entry.train(data, te_path,
                                      os.path.join(root, f"{name}_images"),
                                      os.path.join(root, f"{name}_weights"),
                                      **kw)
-        wall = time.perf_counter() - t
         counts = (k2.launches, k1.launches, k1b.launches)  # ends here
-        return hist, counts, wall, tee.buf.getvalue(), Recorded.made[-1]
+        return hist, counts, tee.buf.getvalue(), Recorded.made[-1]
 
-    hist_a, counts_a, wall_a, _, tr_a = run("a", 2)
-    hist_b1, counts_b1, wall_b1, _, tr_b1 = run("b", 1)
+    hist_a, counts_a, _, tr_a = run("a", 2)
+    hist_b1, counts_b1, _, tr_b1 = run("b", 1)
     saved_b = _snapshot(state_to_dict(tr_b1.state))
-    hist_b2, counts_b2, wall_b2, out_b2, tr_b2 = run("b", 2)
+    hist_b2, counts_b2, out_b2, tr_b2 = run("b", 2)
 
     # counters: per step one K2 per DFBlock K2 takes and one K1 per other
     # DFBlock, one K1 bwd per DFBlock (14, 0, 14 at 256px); per eval batch
@@ -2113,34 +1422,7 @@ def train_entry_phase(root: str, bare_img_s: float, inception_path: str):
         raise AssertionError(f"serving gen_{epoch}.pth: {code} {img.shape}")
     log(f"[entry] build_sampler served gen_{epoch}.pth: one {size}px PNG, "
         f"pixel std {img.std():.2f}")
-
-    numbers = {}
-    for name, tr, wall, epochs in (("A", tr_a, wall_a, 2),
-                                   ("B2", tr_b2, wall_b2, 1)):
-        steps = epochs * steps_per_epoch
-        step_s = tr.timers["step"].total()
-        h2d_s = tr.timers["h2d"].total()
-        hs = tr.host_seconds
-        numbers[name] = {
-            "steps": steps, "call_s": wall,
-            "img_per_s_train_epoch": steps * TRAIN_BATCH / hs["train"],
-            "img_per_s_call": steps * TRAIN_BATCH / wall,
-            "step_device_ms": [t * 1e3 for t in tr.timers["step"].times],
-            "h2d_device_ms_total": h2d_s * 1e3,
-            "host_s": dict(hs), "step_device_s_total": step_s}
-        log(f"[entry] run {name}: {steps} steps, {epochs} epochs; trainer "
-            f"{numbers[name]['img_per_s_train_epoch']:.2f} img/s over "
-            f"train_epoch ({hs['train']:.3f}s: data wait "
-            f"{hs['data_wait']:.3f}s, H2D copies {h2d_s * 1e3:.2f} ms "
-            f"device, steps {step_s:.3f}s device {['%.1f' % (t * 1e3) for t in tr.timers['step'].times]} ms); "
-            f"eval + sample dumps {hs['eval']:.3f}s, checkpoints "
-            f"{hs['checkpoint']:.3f}s; whole call {wall:.2f}s = "
-            f"{numbers[name]['img_per_s_call']:.2f} img/s (deterministic "
-            f"cuDNN); bare step (phase 4, default cuDNN) {bare_img_s:.2f} "
-            f"img/s")
-    numbers["scores"] = scores
-    numbers["hist_a"] = hist_a
-    return tuple(totals), numbers
+    return tuple(totals), hist_a
 
 
 class _EvalLoader(list):
@@ -2162,20 +1444,9 @@ def _scores_close(got, want) -> bool:
     return is_gap <= EVAL_IS_RTOL and fid_gap <= EVAL_FID_RTOL
 
 
-def _seconds(fn):
-    """(result, host seconds) of fn, the card synchronized on both ends."""
-    import torch
-
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t
-
-
-def eval_phase(root: str, inception_path: str, bare_img_s: float):
-    """Phase 6. Returns (K2, K1 launches of two `Trainer.evaluate` calls,
-    eval numbers)."""
+def eval_phase(root: str, inception_path: str):
+    """Phase 6. Returns the K2 and K1 launches of two `Trainer.evaluate`
+    calls."""
     from unittest import mock
 
     import torch
@@ -2221,12 +1492,10 @@ def eval_phase(root: str, inception_path: str, bare_img_s: float):
     # side, the second reading it from the cache
     k2, k1, k1b = _counters()
     k2.launches = k1.launches = k1b.launches = 0  # the eval path starts
-    scores, eval_s = [], []
+    scores = []
     for _ in range(2):
         trainer._eval_rng = trainer._epoch_generator(0)
-        out, sec = _seconds(lambda: trainer.evaluate(loader))
-        scores.append(out[:2])
-        eval_s.append(sec)
+        scores.append(trainer.evaluate(loader)[:2])
     counts = (k2.launches, k1.launches, k1b.launches)  # ends here
     shapes = dfblock_shapes(cfg.generator)
     n_k2 = sum(fused_modconv._supported(
@@ -2248,56 +1517,25 @@ def eval_phase(root: str, inception_path: str, bare_img_s: float):
 
     # the same evaluation in its parts
     trainer._eval_rng = trainer._epoch_generator(0)
-    fakes, g_s = _seconds(lambda: torch.cat(
-        [trainer.generate(b["captions"], b["cap_lens"]) for b in loader]))
-    reals, copy_s = _seconds(lambda: torch.cat(
-        [trainer._device_batch(b)[0] for b in loader]))
-    feats = {}
+    fakes = torch.cat([trainer.generate(b["captions"], b["cap_lens"])
+                       for b in loader])
+    reals = torch.cat([trainer._device_batch(b)[0] for b in loader])
 
     def inception(fn, images):
         return metrics._batched(fn, params, images, 8)
 
-    (feats["p"], feats["f"]), fake_s = _seconds(lambda: (
-        inception(metrics._logits_batch, fakes),
-        inception(metrics._features_batch, fakes)))
-    feats["r"], real_s = _seconds(
-        lambda: inception(metrics._features_batch, reals))
-    table = {("_logits_batch", id(fakes)): feats["p"],
-             ("_features_batch", id(fakes)): feats["f"],
-             ("_features_batch", id(reals)): feats["r"]}
+    table = {("_logits_batch", id(fakes)): inception(metrics._logits_batch,
+                                                     fakes),
+             ("_features_batch", id(fakes)): inception(
+                 metrics._features_batch, fakes),
+             ("_features_batch", id(reals)): inception(
+                 metrics._features_batch, reals)}
     with mock.patch.object(metrics, "_batched", lambda fn, p, im, bs:
                            table[(fn.__name__, id(im))]):
-        parts, host_s = _seconds(
-            lambda: metrics.compute_is_fid(params, fakes, reals))
-    split = {"g_fakes_s": g_s, "inception_fake_side_s": fake_s,
-             "inception_real_side_s": real_s, "host_math_s": host_s,
-             "reals_to_device_s": copy_s}
-    log(f"[eval] one epoch's eval: first {eval_s[0]:.3f} s (real side "
-        f"computed), cached {eval_s[1]:.3f} s; in parts (s): "
-        f"{json.dumps(split)}; IS, FID from the parts {parts}")
+        parts = metrics.compute_is_fid(params, fakes, reals)
+    log(f"[eval] IS, FID from the evaluation's parts {parts}")
     if not _scores_close(parts, scores[0]):
         raise AssertionError(f"parts {parts} against evaluate {scores[0]}")
-
-    # inception throughput by batch size; a batch size counts as "changes
-    # no number" when its features equal batch 8's bit for bit
-    rates, same = {}, []
-    for bs in EVAL_BATCH_SIZES:
-        metrics._batched(metrics._features_batch, params, fakes[:bs], bs)
-        out, sec = _seconds(lambda: metrics._batched(
-            metrics._features_batch, params, fakes, bs))
-        rates[bs] = n / sec
-        if np.array_equal(out, feats["f"]):
-            same.append(bs)
-    log(f"[eval] inception features, {n} images, img/s by batch "
-        f"{json.dumps(rates)}; bit-identical to batch 8 at {same}")
-    with torch.inference_mode():
-        res = _profile(lambda: metrics._features_batch(params, fakes[:8]), 3)
-    profile_b8 = None
-    if res is not None:
-        profile_b8, top = res
-        log("[profile] inception features, batch 8 " + json.dumps(profile_b8))
-        for name, ms in top:
-            log(f"[profile] {ms:8.3f} ms/batch  {name[:110]}")
 
     # the card against the CPU: the network on 8 images, then IS/FID over
     # EVAL_SUBSET images a side through the low-rank cross term
@@ -2317,42 +1555,24 @@ def eval_phase(root: str, inception_path: str, bare_img_s: float):
     sub_f, sub_r = fakes[:EVAL_SUBSET], reals[:EVAL_SUBSET]
     with mock.patch.object(metrics, "sqrtm_trace_lowrank",
                            wraps=metrics.sqrtm_trace_lowrank) as lowrank:
-        on_card, card_s = _seconds(
-            lambda: metrics.compute_is_fid(params, sub_f, sub_r))
-        t = time.perf_counter()
+        on_card = metrics.compute_is_fid(params, sub_f, sub_r)
         on_cpu = metrics.compute_is_fid(cpu, sub_f.cpu(), sub_r.cpu())
-        cpu_s = time.perf_counter() - t
     gaps["is_minus_1_fid_rel"] = _score_gaps(on_card, on_cpu)
     log(f"[eval] card vs CPU: 8 images {json.dumps(gaps)}; IS, FID over "
-        f"{EVAL_SUBSET} a side: card {on_card} ({card_s:.2f} s), CPU "
-        f"{on_cpu} ({cpu_s:.2f} s), low-rank calls {lowrank.call_count}")
+        f"{EVAL_SUBSET} a side: card {on_card}, CPU {on_cpu}, low-rank calls "
+        f"{lowrank.call_count}")
     if lowrank.call_count != 2:
         raise AssertionError("the low-rank cross term was not taken")
     if not (np.all(np.isfinite(on_card))
             and _scores_close(on_card, on_cpu)):
         raise AssertionError(f"IS/FID card {on_card} vs CPU {on_cpu}")
-
-    epoch_s = CUB_STEPS_PER_EPOCH * TRAIN_BATCH / bare_img_s
-    numbers = {"images_a_side": n, "eval_s_first": eval_s[0],
-               "eval_s_cached": eval_s[1], "split": split,
-               "inception_img_per_s": rates, "batch_bit_identical": same,
-               "inception_profile_batch8": profile_b8,
-               "card_vs_cpu": gaps, "scores": scores,
-               "cub_epoch_train_s": epoch_s,
-               "eval_share_first": eval_s[0] / (epoch_s + eval_s[0]),
-               "eval_share_cached": eval_s[1] / (epoch_s + eval_s[1])}
-    log(f"[eval] against CUB's {CUB_STEPS_PER_EPOCH} steps an epoch at the "
-        f"bare step's {bare_img_s:.2f} img/s ({epoch_s:.1f} s): eval is "
-        f"{100 * numbers['eval_share_first']:.2f}% of the first epoch, "
-        f"{100 * numbers['eval_share_cached']:.2f}% of a later one")
     trainer.close()
-    return counts[:2], numbers
+    return counts[:2]
 
 
 DP_LOCAL_BATCH = 12              # phase 7b: two ranks on one card, 12 + 12
 DP_EVAL_PER_RANK = 24            # phase 7b: fakes a rank for IS/FID
 DP_TIMEOUT_S = 420               # each phase-7 child process
-DP_AB_STEPS = 5                  # phase 7a: steps a window, plain and DP
 
 
 def _free_port() -> int:
@@ -2365,147 +1585,39 @@ def _free_port() -> int:
 
 def dp_entry_child(spec: dict) -> int:
     """Phase 7a's child: one rank of `train_entry.train(data_parallel=
-    True)` under torch.profiler (device activity); prints one
-    "DP_ENTRY {json}" line with the histories, the launch and collective
-    counters, the trainer's step timers and the NCCL kernels' device
-    time."""
-    from unittest import mock
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    True)`; prints one "DP_ENTRY {json}" line with the histories and the
+    launch and collective counters."""
     sys.path.insert(0, REPO)
     from gan_codes_tpu_torch import train_entry
     from gan_codes_tpu_torch.parallel import mesh as pmesh
-    from gan_codes_tpu_torch.train.trainer import Trainer
-
-    made = []
-
-    class Recorded(Trainer):
-        def __init__(self, *a, **k):
-            super().__init__(*a, **k)
-            made.append(self)
 
     k2, k1, k1b = _counters()
     k2.launches = k1.launches = k1b.launches = 0  # main path starts
     pmesh.all_reduce.calls = pmesh.broadcast.calls = 0
-    t = time.perf_counter()
-    with mock.patch.object(train_entry, "Trainer", Recorded), \
-            profile(activities=[ProfilerActivity.CUDA]) as prof:
-        hist = train_entry.train(
-            spec["data"], spec["te"], spec["images"], spec["weights"],
-            image_size=256, batch_size=TRAIN_BATCH, num_epochs=2, seed=SEED,
-            n_channels=32, compute_dtype="float32",
-            inception_weights_path=spec["inception"], device="cuda",
-            data_parallel=True, deterministic=True)
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t
+    hist = train_entry.train(
+        spec["data"], spec["te"], spec["images"], spec["weights"],
+        image_size=256, batch_size=TRAIN_BATCH, num_epochs=2, seed=SEED,
+        n_channels=32, compute_dtype="float32",
+        inception_weights_path=spec["inception"], device="cuda",
+        data_parallel=True, deterministic=True)
     counts = [k2.launches, k1.launches, k1b.launches]  # main path ends
-    collectives = [pmesh.all_reduce.calls, pmesh.broadcast.calls]
-    nccl = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "nccl" in e.name.lower()]
-    tr = made[-1]
-
-    # the DP step beside the plain step in this process (NCCL, world 1,
-    # a new group: train() closed its own), from one full-width state,
-    # in windows plain, DP, DP, plain, then one profile of each
-    from gan_codes_tpu_torch.train.step import make_train_step
-
-    os.environ["MASTER_PORT"] = str(_free_port())
-    mesh = pmesh.init_mesh("cuda")
-    try:
-        cfg, state, te, plain, batch = _train_setup("float32")
-        steps = {"plain": plain, "dp": make_train_step(cfg, mesh)}
-        rates = {"plain": [], "dp": []}
-        for name in ("plain", "dp", "dp", "plain"):
-            fn = steps[name]
-            fn(state, te, *batch)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(DP_AB_STEPS):
-                fn(state, te, *batch)
-            end.record()
-            end.synchronize()
-            rates[name].append(DP_AB_STEPS * TRAIN_BATCH
-                               / (start.elapsed_time(end) / 1e3))
-        profiles = {}
-        for name, fn in steps.items():
-            res = _profile(lambda: fn(state, te, *batch), 2, by_name=True)
-            profiles[name] = None if res is None else res[0]
-        strides = {name: _grad_stride_mismatch(state, fn, te, batch)
-                   for name, fn in steps.items()}
-    finally:
-        pmesh.close_mesh(mesh)
     print("DP_ENTRY " + json.dumps({
-        "hist": hist, "counts": counts, "call_s": wall,
-        "all_reduce_calls": collectives[0],
-        "broadcast_calls": collectives[1],
-        "step_device_ms": [x * 1e3 for x in tr.timers["step"].times],
-        "host_s": dict(tr.host_seconds), "nccl_kernels": len(nccl),
-        "nccl_names": sorted({e.name for e in nccl}),
-        "nccl_device_ms": sum(e.time_range.end - e.time_range.start
-                              for e in nccl) / 1e3,
-        "ab_img_per_s": rates, "ab_profiles": profiles,
-        "grad_stride_mismatch": strides}), flush=True)
+        "hist": hist, "counts": counts,
+        "all_reduce_calls": pmesh.all_reduce.calls,
+        "broadcast_calls": pmesh.broadcast.calls}), flush=True)
     return 0
 
 
-def _grad_stride_mismatch(state, step, te, batch) -> dict:
-    """Over one call of `step`: for each optimizer update (D phase 1, D
-    phase 2, G phase 3), how many of the gradients it is given have
-    strides other than their parameters' (torch's foreach kernels, which
-    the clip and Adam run on, take their one-launch-per-chunk path only
-    when the lists' strides match)."""
-    seen = {"d": [], "g": []}
-    origs = {}
-    for key, opt in (("d", state.d_opt), ("g", state.g_opt)):
-        origs[key] = opt.step
-
-        def wrapped(grads, _opt=opt, _key=key):
-            grads = list(grads)
-            seen[_key].append([sum(p.stride() != g.stride() for p, g in
-                                   zip(_opt.params, grads)), len(grads)])
-            return origs[_key](grads)
-        opt.step = wrapped
-    try:
-        step(state, te, *batch)
-    finally:
-        for key, opt in (("d", state.d_opt), ("g", state.g_opt)):
-            opt.step = origs[key]
-    return seen
-
-
-def _by_name_diff(profiles: dict, top: int = 12) -> dict:
-    """The plain step's kernels less the DP step's, by kernel name: the
-    launches and device ms a step in all, and the `top` names whose launch
-    counts differ most (name, plain launches, DP launches, plain ms, DP
-    ms)."""
-    plain = profiles["plain"]["by_name"]
-    dp = profiles["dp"]["by_name"]
-    rows = [(k, plain.get(k, [0, 0.0]), dp.get(k, [0, 0.0]))
-            for k in set(plain) | set(dp)]
-    rows.sort(key=lambda r: -abs(r[1][0] - r[2][0]))
-    return {"launches": sum(p[0] - d[0] for _, p, d in rows),
-            "ms": sum(p[1] - d[1] for _, p, d in rows),
-            "top": [[k[:120], p[0], d[0], p[1], d[1]]
-                    for k, p, d in rows[:top] if p[0] != d[0]]}
-
-
-def dp_phase(root: str, inception_path: str, entry_numbers: dict,
-             bare_img_s: float):
-    """Phase 7. Returns (K2, K1, K1 bwd launches of 7a's main path, DP
-    numbers)."""
+def dp_phase(root: str, inception_path: str, hist_a: dict):
+    """Phase 7. Returns the K2, K1 and K1 bwd launches of 7a's main
+    path."""
     import torch
 
     from gan_codes_tpu_torch.config import GeneratorConfig
     from gan_codes_tpu_torch.ops.kernels import fused_modconv
 
     torch.cuda.empty_cache()  # the children share the card
-    numbers = {}
     # (a) train_entry --dp at world size 1 over NCCL, in a child process
-    t0 = time.perf_counter()
     spec = {"data": os.path.join(root, "cub"),
             "te": os.path.join(root, "entry_text_encoder.pth"),
             "inception": inception_path,
@@ -2524,8 +1636,7 @@ def dp_phase(root: str, inception_path: str, entry_numbers: dict,
                              f"{r.returncode}):\n{r.stdout[-4000:]}\n"
                              f"{r.stderr[-4000:]}")
     child = json.loads(lines[-1][len("DP_ENTRY "):])
-    wall_a = time.perf_counter() - t0
-    hist, hist_a = child["hist"], entry_numbers["hist_a"]
+    hist = child["hist"]
     gaps = {}
     for key in ("g_losses", "d_losses", "d_gp_losses", "txtimg_losses"):
         gaps[key] = [abs(b - a) / max(abs(a), 1e-30)
@@ -2554,64 +1665,13 @@ def dp_phase(root: str, inception_path: str, entry_numbers: dict,
     if child["all_reduce_calls"] != 4 * steps + 1:
         raise AssertionError(f"--dp all-reduces {child['all_reduce_calls']}"
                              f" != {4 * steps + 1}")
-    # the child's first step is its process's first (cuDNN picks its
-    # algorithms then); run A's process had run phases 2-4 before
-    step_ms = child["step_device_ms"][1:]
-    a_ms = entry_numbers["A"]["step_device_ms"][1:]
-    numbers["a"] = {
-        "call_s": child["call_s"], "child_wall_s": wall_a,
-        "loss_rel_gaps": gaps, "score_rel_gaps": score_gaps,
-        "counts": child["counts"],
-        "all_reduce_calls": child["all_reduce_calls"],
-        "broadcast_calls": child["broadcast_calls"],
-        "step_device_ms": child["step_device_ms"],
-        "img_per_s_dp_steps": TRAIN_BATCH * len(step_ms) / sum(step_ms) * 1e3,
-        "img_per_s_run_a_steps": TRAIN_BATCH * len(a_ms) / sum(a_ms) * 1e3,
-        "img_per_s_bare_step": bare_img_s,
-        "ab_img_per_s": child["ab_img_per_s"],
-        "ab_profiles": {k: v and {x: y for x, y in v.items()
-                                  if x != "by_name"}
-                        for k, v in child["ab_profiles"].items()},
-        "ab_by_name_diff": (_by_name_diff(child["ab_profiles"])
-                            if all(child["ab_profiles"].values()) else None),
-        "grad_stride_mismatch": child["grad_stride_mismatch"],
-        "nccl_kernels": child["nccl_kernels"],
-        "nccl_names": child["nccl_names"],
-        "nccl_device_ms": child["nccl_device_ms"],
-        "nccl_device_ms_per_step": child["nccl_device_ms"] / steps,
-        "host_s": child["host_s"]}
     log(f"[dp] (a) train_entry --dp, world 1 over NCCL, 256px batch 24 "
         f"fp32, 2 epochs: losses and IS/FID against run A {json.dumps(gaps)}"
         f" {score_gaps}; launches (K2, K1, K1 bwd) {child['counts']}; "
         f"{child['all_reduce_calls']} all-reduces and "
-        f"{child['broadcast_calls']} broadcasts; step device ms "
-        f"{['%.1f' % x for x in child['step_device_ms']]} (the first "
-        f"cold): after it {numbers['a']['img_per_s_dp_steps']:.2f} img/s "
-        f"(profiler on) against run A's steps after its first "
-        f"{numbers['a']['img_per_s_run_a_steps']:.2f} and the bare step "
-        f"{bare_img_s:.2f}; NCCL kernels {child['nccl_kernels']} "
-        f"({child['nccl_names'][:3]}), {child['nccl_device_ms']:.4f} "
-        f"device ms in all; child process {wall_a:.1f}s")
-    ab = child["ab_img_per_s"]
-    prof = {k: v and {"busy_ms": v["device_busy_ms_per_call"],
-                      "kernels": v["kernels_per_call"],
-                      "idle_share": v["idle_share"],
-                      "nccl_ms": v["ms_per_call"].get("NCCL collectives",
-                                                      0.0),
-                      "copies_ms": v["ms_per_call"].get("copies", 0.0)}
-            for k, v in child["ab_profiles"].items()}
-    log(f"[dp] (a) one process, one full-width fp32 state, windows of "
-        f"{DP_AB_STEPS} steps plain, DP, DP, plain (CUDA events): plain "
-        f"{['%.2f' % x for x in ab['plain']]}, DP (world 1, NCCL) "
-        f"{['%.2f' % x for x in ab['dp']]} img/s; profiler, device ms a "
-        f"step: {json.dumps(prof)}")
-    log(f"[dp] (a) plain less DP kernels a step, by name: "
-        f"{json.dumps(numbers['a']['ab_by_name_diff'])}; gradients with "
-        f"strides other than their parameters' ([mismatched, all] per "
-        f"update): {json.dumps(child['grad_stride_mismatch'])}")
+        f"{child['broadcast_calls']} broadcasts")
 
     # (b) two ranks on the one card over gloo: the step and the eval
-    t0 = time.perf_counter()
     r = subprocess.run(
         [sys.executable, "-m", "gan_codes_tpu_torch.tools.dp_check",
          "--device", "cuda:0", "--image-size", "256",
@@ -2620,18 +1680,15 @@ def dp_phase(root: str, inception_path: str, entry_numbers: dict,
          str(DP_EVAL_PER_RANK), "--timeout", str(DP_TIMEOUT_S - 60),
          "--seed", str(SEED)],
         cwd=REPO, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
-    wall_b = time.perf_counter() - t0
     lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
     if r.returncode != 0 or not lines:
         raise AssertionError(f"dp_check failed (rc {r.returncode}):\n"
                              f"{r.stdout[-4000:]}\n{r.stderr[-4000:]}")
     report = json.loads(lines[-1])
-    numbers["b"] = dict(report, wall_s=wall_b)
     log(f"[dp] (b) 2 ranks on one card over gloo, 256px 12 + 12 against "
         f"one process at 24: {json.dumps(report['steps'])}; IS/FID "
-        f"{json.dumps(report.get('eval'))}; ranks' steps "
-        f"{report['rank_step_s']} s; {wall_b:.1f}s in all")
-    return tuple(want), numbers
+        f"{json.dumps(report.get('eval'))}")
+    return tuple(want)
 
 
 INTEROP_LEFT_OUT = ("discriminator", "img_forward.1.gamma")  # no Adam entry
@@ -2651,8 +1708,8 @@ def _torch_import(*argv: str) -> str:
 
 
 def interop_phase(root: str):
-    """Phase 8. Returns ((K2, K1, K1 bwd) launches of the resumed
-    `train_entry`, interop numbers)."""
+    """Phase 8. Returns the K2, K1 and K1 bwd launches of the resumed
+    `train_entry`."""
     import contextlib
 
     import torch
@@ -2670,9 +1727,7 @@ def interop_phase(root: str):
     data = os.path.join(root, "cub")
     te_path = os.path.join(root, "entry_text_encoder.pth")
     n_words = len(load_vocab(data)[0])
-    numbers = {}
     # a full-width fp32 state after 2 steps, as the reference would save it
-    t0 = time.perf_counter()
     cfg = GANConfig.for_image_size(256, vocab_size=n_words,
                                    batch_size=TRAIN_BATCH)
     state = create_train_state(cfg, SEED, device="cuda")
@@ -2712,14 +1767,11 @@ def interop_phase(root: str):
                                   params=list(range(len(ref))))]}
     pt = os.path.join(root, "reference_checkpoint.pt")
     torch.save(ck, pt)
-    numbers["source_s"] = time.perf_counter() - t0
 
     # the import, a process of its own as a user runs it
     out = os.path.join(root, "imported_weights")
-    t = time.perf_counter()
     said = _torch_import("--ckpt", pt, "--out", out, "--vocab-size",
                          str(n_words), "--batch-size", str(TRAIN_BATCH))
-    numbers["import_s"] = time.perf_counter() - t
     if "1 param(s) had no Adam state" not in said:
         raise AssertionError(f"the import did not name the parameter "
                              f"without Adam state:\n{said}")
@@ -2745,21 +1797,18 @@ def interop_phase(root: str):
     log(f"[interop] reference checkpoint.pt (256px fp32 state after 2 "
         f"steps, reference key order, no Adam entry for "
         f"{INTEROP_LEFT_OUT}) imported by `python -m gan_codes_tpu_torch."
-        f"models.torch_import --ckpt` in {numbers['import_s']:.1f}s: "
-        f"{n_tensors} tensors bit for bit (G, D, EMA, exp_avg, exp_avg_sq, "
-        f"steps), step 2")
+        f"models.torch_import --ckpt`: {n_tensors} tensors bit for bit (G, "
+        f"D, EMA, exp_avg, exp_avg_sq, steps), step 2")
 
     # train_entry resumes it: one more epoch of 2 steps on phase 5's data
     k2, k1, k1b = _counters()
     tee = _Tee(sys.stdout)
     k2.launches = k1.launches = k1b.launches = 0  # main path starts here
-    t = time.perf_counter()
     with contextlib.redirect_stdout(tee):
         hist = train_entry.train(data, te_path,
                                  os.path.join(root, "imported_images"), out,
                                  image_size=256, batch_size=TRAIN_BATCH,
                                  num_epochs=2, n_channels=32, device="cuda")
-    numbers["resume_s"] = time.perf_counter() - t
     counts = (k2.launches, k1.launches, k1b.launches)  # main path ends here
     steps = ENTRY_TRAIN // TRAIN_BATCH
     want = (14 * (steps + 1), 0, 14 * steps)
@@ -2770,19 +1819,15 @@ def interop_phase(root: str):
                                               "d_gp_losses")):
         raise AssertionError(f"resumed epoch: launches {counts} (want "
                              f"{want}), histories {hist}")
-    numbers["resumed_losses"] = {k: v[1] for k, v in hist.items()}
     log(f"[interop] train_entry --weights <import> resumed from epoch 1: "
         f"{steps} steps and one eval batch, launches (K2, K1, K1 bwd) "
-        f"{counts}, losses {json.dumps(numbers['resumed_losses'])}, "
-        f"{numbers['resume_s']:.1f}s")
+        f"{counts}, losses {json.dumps({k: v[1] for k, v in hist.items()})}")
 
     # --export, then serve one request from the exported file
     served = os.path.join(root, "exported")
     os.makedirs(served)
     exported = os.path.join(served, "gen_1.pth")
-    t = time.perf_counter()
     _torch_import("--export", out, "--out", exported)
-    numbers["export_s"] = time.perf_counter() - t
     _bit_equal(_snapshot(torch.load(exported, weights_only=True)),
                _snapshot(torch.load(os.path.join(out, "gen_1.pth"),
                                     weights_only=True)), "export")
@@ -2798,12 +1843,11 @@ def interop_phase(root: str):
         body["images"][0]))))
     if code != 200 or img.shape != (256, 256, 3):
         raise AssertionError(f"serving the export: {code} {img.shape}")
-    log(f"[interop] --export of gen_1.pth ({numbers['export_s']:.1f}s) "
-        f"equals the weights dir's bit for bit and serves one 256px PNG")
-    return counts, numbers
+    log("[interop] --export of gen_1.pth equals the weights dir's bit for "
+        "bit and serves one 256px PNG")
+    return counts
 
 
-UP_ITERS = 10                    # phase 9a/9b: timed calls of a block
 LONGRUN_EPOCHS, LONGRUN_KILL = 2, 1  # phase 9e: epochs, SIGKILL after
 LEG_TIMEOUT_S = 300              # phase 9e: each longrun leg's limit
 
@@ -2816,8 +1860,8 @@ def up_blocks(gcfg):
 
 
 def up_block_phase():
-    """Phase 9 (a) and (b). Returns ((K2, K1, K1 bwd) launches of the
-    counted `res_block_g_up` calls, numbers)."""
+    """Phase 9 (a) and (b). Returns the K2, K1 and K1 bwd launches of the
+    counted `res_block_g_up` calls."""
     import copy
 
     import torch
@@ -2835,7 +1879,6 @@ def up_block_phase():
     B = KERNEL_BATCH
     k2, k1, k1b = _counters()
     counted = [0, 0, 0]
-    numbers = {"up_block": {}, "subpixel": []}
 
     def counted_call(fn, want, what):
         k2.launches = k1.launches = k1b.launches = 0  # main path starts
@@ -2853,11 +1896,10 @@ def up_block_phase():
 
     # (a) res_block_g_up against res_block_g(upsample(x)) (cuDNN's conv_1
     # against K2's), against its plain versions, its fp32 backward against
-    # the plain composition's autograd; its time beside the kernel path's
+    # the plain composition's autograd
     for dtype in (torch.float32, torch.bfloat16):
         fp32 = dtype == torch.float32
         name = "fp32" if fp32 else "bf16"
-        rows = numbers["up_block"][name] = []
         sent = rand(B, gcfg.sentence_dim, dtype=dtype)
         for i, h, cin, cout in up_blocks(gcfg):
             block = copy.deepcopy(stack[i]).to(dtype)
@@ -2884,16 +1926,6 @@ def up_block_phase():
                         fp32, 2e-4, -5)
             err_plain = _held(f"{what} vs its plain versions", out, plain,
                               fp32, 2e-4, -5)
-            with torch.no_grad():
-                up_ms = cuda_ms(up, UP_ITERS)
-                kp_ms = cuda_ms(kernel_path, UP_ITERS)
-                up_dev = graph_ms(up)
-                kp_dev = graph_ms(kernel_path)
-            row = {"h": h, "cin": cin, "cout": cout, "ms": up_ms,
-                   "kernel_path_ms": kp_ms, "device_ms": up_dev,
-                   "kernel_path_device_ms": kp_dev, "max_abs_err": err,
-                   "max_abs_err_plain": err_plain}
-            rows.append(row)
             if fp32:
                 xg = x.detach().requires_grad_()
                 sg = sent.detach().requires_grad_()
@@ -2913,86 +1945,35 @@ def up_block_phase():
                     if e > 1e-3 * t:
                         raise AssertionError(f"{what} backward input {j}: "
                                              f"max|err| {e} max|ref| {t}")
-                row["bwd_worst_rel_err"] = worst
-                row["fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
-                    up(xg, sg), leaves, dy), UP_ITERS)
-                row["kernel_path_fwd_bwd_ms"] = cuda_ms(
-                    lambda: torch.autograd.grad(kernel_path(xg, sg), leaves,
-                                                dy), UP_ITERS)
                 del xg, sg, leaves, dy, out, got, ref, want
             log(f"[rest] {what}: max_abs_err {err:.3g} vs the kernel path, "
-                f"{err_plain:.3g} vs plain | ms {up_ms:.4f} kernel_path_ms "
-                f"{kp_ms:.4f} (eager calls); device ms {up_dev:.4f} kernel "
-                f"path {kp_dev:.4f} (CUDA graph)" + (
-                    f" | fwd+bwd ms {row['fwd_bwd_ms']:.4f} kernel path "
-                    f"{row['kernel_path_fwd_bwd_ms']:.4f}, backward worst "
-                    f"max|err|/max|ref| {row['bwd_worst_rel_err']:.3g}"
+                f"{err_plain:.3g} vs plain" + (
+                    f" | backward worst max|err|/max|ref| {worst:.3g}"
                     if fp32 else ""))
-        for key in ("ms", "kernel_path_ms", "device_ms",
-                    "kernel_path_device_ms"):
-            numbers[f"{key}_{name}"] = sum(r[key] for r in rows)
-    numbers["up_block_fwd_bwd_ms_fp32"] = sum(
-        r["fwd_bwd_ms"] for r in numbers["up_block"]["fp32"])
-    numbers["kernel_path_fwd_bwd_ms_fp32"] = sum(
-        r["kernel_path_fwd_bwd_ms"] for r in numbers["up_block"]["fp32"])
 
     # (b) the sub-pixel conv at the six conv_1 shapes, fp32
     for i, h, cin, cout in up_blocks(gcfg):
         conv = stack[i].conv_1
         x = rand(B, h, h, cin)
-
-        def folded(xx=x, c=conv):
-            return ops_nn.conv3x3_on_upsampled(xx, c.weight, c.bias)
-
-        def unfolded(xx=x, c=conv):
-            return ops_nn.conv2d(ops_nn.upsample_nearest_2x(xx), c.weight,
-                                 c.bias, padding=1)
-
         with torch.no_grad():
-            got, want = folded(), unfolded()
+            got = ops_nn.conv3x3_on_upsampled(x, conv.weight, conv.bias)
+            want = ops_nn.conv2d(ops_nn.upsample_nearest_2x(x), conv.weight,
+                                 conv.bias, padding=1)
             if not torch.allclose(got, want, atol=1e-4, rtol=1e-4):
                 raise AssertionError(
                     f"conv3x3_on_upsampled x[{B},{h},{h},{cin}] -> {cout}: "
                     f"max|err| {(got - want).abs().max().item()}")
-            row = {"h": h, "cin": cin, "cout": cout,
-                   "max_abs_err": (got - want).abs().max().item(),
-                   "ms": cuda_ms(folded, UP_ITERS),
-                   "conv_of_upsampled_ms": cuda_ms(unfolded, UP_ITERS),
-                   "device_ms": graph_ms(folded),
-                   "conv_of_upsampled_device_ms": graph_ms(unfolded)}
-        numbers["subpixel"].append(row)
         log(f"[rest] conv3x3_on_upsampled fp32 x[{B},{h},{h},{cin}] -> "
-            f"{cout}: max_abs_err {row['max_abs_err']:.3g} | ms "
-            f"{row['ms']:.4f} conv2d(upsample(x)) ms "
-            f"{row['conv_of_upsampled_ms']:.4f} (eager calls); device ms "
-            f"{row['device_ms']:.4f} against "
-            f"{row['conv_of_upsampled_device_ms']:.4f} (CUDA graph)")
-    for key in ("ms", "conv_of_upsampled_ms", "device_ms",
-                "conv_of_upsampled_device_ms"):
-        numbers[f"subpixel_{key}"] = sum(r[key] for r in numbers["subpixel"])
-    log(f"[rest] six up-blocks, batch {B}, eager calls (device, CUDA "
-        f"graph): res_block_g_up fp32 {numbers['ms_fp32']:.4f} "
-        f"({numbers['device_ms_fp32']:.4f}) ms against the kernel path's "
-        f"{numbers['kernel_path_ms_fp32']:.4f} "
-        f"({numbers['kernel_path_device_ms_fp32']:.4f}), fwd+bwd "
-        f"{numbers['up_block_fwd_bwd_ms_fp32']:.4f} against "
-        f"{numbers['kernel_path_fwd_bwd_ms_fp32']:.4f}; bf16 "
-        f"{numbers['ms_bf16']:.4f} ({numbers['device_ms_bf16']:.4f}) "
-        f"against {numbers['kernel_path_ms_bf16']:.4f} "
-        f"({numbers['kernel_path_device_ms_bf16']:.4f}); the sub-pixel conv "
-        f"{numbers['subpixel_ms']:.4f} "
-        f"({numbers['subpixel_device_ms']:.4f}) ms against "
-        f"conv2d(upsample(x)) {numbers['subpixel_conv_of_upsampled_ms']:.4f}"
-        f" ({numbers['subpixel_conv_of_upsampled_device_ms']:.4f}); counted "
-        f"launches (K2, K1, K1 bwd) {tuple(counted)}")
-    return tuple(counted), numbers
+            f"{cout}: max_abs_err {(got - want).abs().max().item():.3g}")
+    log(f"[rest] six up-blocks, batch {B}: counted launches (K2, K1, K1 "
+        f"bwd) {tuple(counted)}")
+    return tuple(counted)
 
 
 def examples_tools_phase(root: str, k2_per_forward: int,
                          k1_per_forward: int):
-    """Phase 9 (c), (d) and (e). Returns ({path: (K2, K1, K1 bwd)
-    launches}, numbers)."""
-    import contextlib
+    """Phase 9 (c), (d) and (e). Returns {path: (K2, K1, K1 bwd)
+    launches}."""
     from unittest import mock
 
     import torch
@@ -3002,7 +1983,7 @@ def examples_tools_phase(root: str, k2_per_forward: int,
     from gan_codes_tpu_torch.tools import longrun, validate_pretrained
 
     k2, k1, k1b = _counters()
-    numbers, launches = {}, {}
+    launches = {}
     per_fwd = (k2_per_forward, k1_per_forward, 0)
 
     def times(n, counts=per_fwd):
@@ -3010,13 +1991,11 @@ def examples_tools_phase(root: str, k2_per_forward: int,
 
     # (c) the train example at full width, then the eval example on it
     work = os.path.join(root, "example")
-    t = time.perf_counter()
     k2.launches = k1.launches = k1b.launches = 0  # main path starts here
     train_example.main(work=work, device="cuda", image_size=256,
                        batch_size=TRAIN_BATCH, n_train=ENTRY_TRAIN,
                        n_test=ENTRY_TEST)
     counts = (k2.launches, k1.launches, k1b.launches)  # main path ends here
-    numbers["train_example_s"] = time.perf_counter() - t
     steps = 2 * (ENTRY_TRAIN // TRAIN_BATCH)
     evals = 2 * (ENTRY_TEST // TRAIN_BATCH)
     want = times(steps + evals)[:2] + (
@@ -3028,12 +2007,10 @@ def examples_tools_phase(root: str, k2_per_forward: int,
     data, weights = (os.path.join(work, "data"),
                      os.path.join(work, "gen_weights"))
     out = os.path.join(root, "eval_out")
-    t = time.perf_counter()
     k2.launches = k1.launches = k1b.launches = 0  # main path starts here
     eval_example.main(["--data", data, "--weights", weights,
                        "--image-size", "256", "--out", out])
     counts = (k2.launches, k1.launches, k1b.launches)  # main path ends here
-    numbers["eval_example_s"] = time.perf_counter() - t
     if counts != times(2):  # the test batch and the caption's
         raise AssertionError(f"eval example: launches (K2, K1, K1 bwd) "
                              f"{counts}, want {times(2)}")
@@ -3049,69 +2026,49 @@ def examples_tools_phase(root: str, k2_per_forward: int,
             sh[:2] != (256, 256) for sh in shapes[:n_batch + 1]):
         raise AssertionError(f"the examples' PNGs: {list(zip(pngs, shapes))}")
     log(f"[rest] train example (256px, batch {TRAIN_BATCH}, "
-        f"{ENTRY_TRAIN} + {ENTRY_TEST} images, 2 epochs) "
-        f"{numbers['train_example_s']:.1f}s, launches "
-        f"{launches['train_example']}; eval example "
-        f"{numbers['eval_example_s']:.1f}s, launches "
+        f"{ENTRY_TRAIN} + {ENTRY_TEST} images, 2 epochs), launches "
+        f"{launches['train_example']}; eval example, launches "
         f"{launches['eval_example']}; {len(pngs)} PNGs")
 
     # (d) the validate tool: --self-test (its assets under root), then
     # --check-weights on the example's weights dir
-    tee = _Tee(sys.stdout)
-    t = time.perf_counter()
-    with mock.patch.object(tempfile, "tempdir", root), \
-            contextlib.redirect_stdout(tee):
+    with mock.patch.object(tempfile, "tempdir", root):
         rc = validate_pretrained.main(["--self-test"])
-    numbers["validate_self_test_s"] = time.perf_counter() - t
     if rc != 0:
         raise AssertionError(f"validate_pretrained --self-test: exit {rc}")
-    t = time.perf_counter()
     k2.launches = k1.launches = k1b.launches = 0  # main path starts here
-    with contextlib.redirect_stdout(tee):
-        rc = validate_pretrained.main(["--check-weights", weights])
+    rc = validate_pretrained.main(["--check-weights", weights])
     counts = (k2.launches, k1.launches, k1b.launches)  # main path ends here
-    numbers["validate_check_weights_s"] = time.perf_counter() - t
     if rc != 0 or counts != times(1):
         raise AssertionError(f"validate_pretrained --check-weights: exit "
                              f"{rc}, launches {counts} (want {times(1)})")
     launches["validate_check_weights"] = counts
-    numbers["validate_checks"] = [line for line in
-                                  tee.buf.getvalue().splitlines()
-                                  if line.startswith("[")]
 
     # (e) the long run: SIGKILL after epoch 1, resumed, against its twin
     # (child processes: their launches are not counted here)
     torch.cuda.empty_cache()  # the children share the card
     lr_out = os.path.join(root, "longrun")
-    t = time.perf_counter()
     rc = longrun.main(["--device", "cuda", "--image-size", "256",
                        "--batch-size", str(TRAIN_BATCH),
                        "--epochs", str(LONGRUN_EPOCHS),
                        "--kill-after-epoch", str(LONGRUN_KILL),
                        "--data", data, "--out", lr_out,
                        "--leg-timeout", str(LEG_TIMEOUT_S)])
-    numbers["longrun_s"] = time.perf_counter() - t
     with open(os.path.join(lr_out, "LONGRUN.json")) as f:
         report = json.load(f)
     if rc != 0 or not report["equivalent"]:
         raise AssertionError(f"longrun: exit {rc}, report {report}")
-    numbers["longrun"] = {k: report[k] for k in (
-        "straight_wall_seconds", "epoch_seconds_first",
-        "epoch_seconds_steady_mean", "resume_print", "equivalent",
-        "loss_health")}
-    log(f"[rest] validate_pretrained --self-test "
-        f"{numbers['validate_self_test_s']:.1f}s and --check-weights "
-        f"{numbers['validate_check_weights_s']:.1f}s: exit 0; longrun "
-        f"(256px, batch {TRAIN_BATCH}, {LONGRUN_EPOCHS} epochs, SIGKILL "
-        f"after epoch {LONGRUN_KILL}) equivalent bit for bit in "
-        f"{numbers['longrun_s']:.1f}s")
-    return launches, numbers
+    said = {k: report[k] for k in ("resume_print", "loss_health")}
+    log(f"[rest] validate_pretrained --self-test and --check-weights: exit "
+        f"0; longrun (256px, batch {TRAIN_BATCH}, {LONGRUN_EPOCHS} epochs, "
+        f"SIGKILL after epoch {LONGRUN_KILL}) equivalent bit for bit "
+        f"{json.dumps(said)}")
+    return launches
 
 
 # phase 10: this slice's options at full width
 REMAT_ARMS = (("float32", TRAIN_BATCH), ("bfloat16", TRAIN_BATCH),
               ("bfloat16", 128))   # 128: the largest bf16 batch of BENCH_r05
-OPT_WINDOW_STEPS = {24: 6, 128: 3}  # steps a throughput window, by batch
 # The step at "high" (one TF32 pass) against "highest" (fp32), from one
 # state: TF32 keeps 10 of fp32's 23 mantissa bits, so rounding both
 # operands moves a product by up to 2 x 2^-11 of its magnitude; a logit or
@@ -3148,14 +2105,11 @@ def check_one_pass(gcfg):
     products exact: the 3xTF32 tolerances, K2 allclose 1e-4, K3 2e-4) and
     a second call bit for bit; both modes' drift from the float64 plain
     version (TF32's error at its size beside 3xTF32's; one pass at least
-    MODE_DRIFT_RATIO times 3xTF32's, so each mode ran), device ms and
-    bound (one pass: the flops once over the TF32 tensor cores, 3xTF32
-    three times), and cuDNN's F.conv2d with TF32 on (K2's conv; K3's
-    three convs). Returns {kernel name: extra keys for its entry}."""
+    MODE_DRIFT_RATIO times 3xTF32's, so each mode ran). Returns {kernel
+    name: extra keys for its entry}."""
     import torch
-    import torch.nn.functional as F
 
-    from gan_codes_tpu_torch.ops.kernels import fused_affine, fused_modconv
+    from gan_codes_tpu_torch.ops.kernels import fused_modconv
     from gan_codes_tpu_torch.ops.kernels import fused_resblock as fr
 
     dev = torch.device("cuda")
@@ -3165,17 +2119,14 @@ def check_one_pass(gcfg):
     def rand(*shape, scale=1.0):
         return torch.randn(*shape, device=dev, generator=gen) * scale
 
-    def modes(call, want_one, ref64, iters, name):
-        """(one-pass out, its err, ms one, ms three, drift one, drift
-        three)."""
+    def modes(call, want_one, ref64, name):
+        """(one-pass out, its plain version, drift one, drift three)."""
         previous = _precision("highest")
         try:
             three = call()
-            ms3 = cuda_ms(call, iters)
             _precision("high")
             one, again = call(), call()
             want = want_one()
-            ms1 = cuda_ms(call, iters)
         finally:
             _precision(previous)
         torch.cuda.synchronize()
@@ -3192,61 +2143,29 @@ def check_one_pass(gcfg):
             raise AssertionError(f"{name}: drift from float64 one pass {d1}"
                                  f", 3xTF32 {d3}: not {MODE_DRIFT_RATIO}x "
                                  "apart, so a mode was not run")
-        return one, want, ms1, ms3, d1, d3
+        return one, want, d1, d3
 
-    k2 = dict(one_pass_ms=0.0, one_pass_3xtf32_ms=0.0, one_pass_bound_ms=0.0,
-              one_pass_3xtf32_bound_ms=0.0, one_pass_library_ms=0.0,
-              one_pass_max_abs_err=0.0, one_pass_drift_vs_float64=0.0,
-              one_pass_3xtf32_drift_vs_float64=0.0)
+    out = {}
+    for kernel in ("fused_modconv3x3", "fused_resblock_g"):
+        out[kernel] = dict(one_pass_max_abs_err=0.0,
+                           one_pass_drift_vs_float64=0.0,
+                           one_pass_3xtf32_drift_vs_float64=0.0)
     for hw, cin, cout in dfblock_shapes(gcfg):
         x = rand(B, hw, hw, cin)
         g1, b1, g2, b2 = (rand(B, cin) for _ in range(4))
         w = rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
         bias = rand(cout, scale=0.1)
         args = (x, g1, b1, g2, b2, w, bias)
-        iters = 20 if hw >= 64 else 50
         ref64 = fused_modconv.reference_modconv3x3(*(a.double() for a in args))
         name = f"K2 x[{B},{hw},{hw},{cin}] -> {cout}"
-        one, want, ms1, ms3, d1, d3 = modes(
+        one, want, d1, d3 = modes(
             lambda: fused_modconv.fused_modconv3x3(*args),
             lambda: fused_modconv.reference_modconv3x3(*args, tf32=True),
-            ref64, iters, name)
+            ref64, name)
         err = _held(f"{name} one pass", one, want, True, 1e-4, 0)
         del ref64
-        h = fused_affine.reference_double_affine_leaky(*args[:5])
-        h_nchw = h.permute(0, 3, 1, 2)
-        w_oihw = w.permute(3, 2, 0, 1).contiguous()
-        previous = _precision("high")
-        try:
-            lib = cuda_ms(lambda: F.conv2d(h_nchw, w_oihw, bias, padding=1),
-                          iters)
-        finally:
-            _precision(previous)
-        n_bytes = (x.numel() + 4 * B * cin + w.numel() + cout
-                   + B * hw * hw * cout) * 4
-        flops = 2.0 * B * hw * hw * 9 * cin * cout
-        b1_ms = bound(n_bytes, flops, H100_TF32_TENSOR_FLOPS)[0]
-        b3_ms = bound(n_bytes, 3 * flops, H100_TF32_TENSOR_FLOPS)[0]
-        log(f"[one-pass] {name}: one pass max_abs_err {err:.3g} against "
-            f"its plain version (tf32 operands), second call bit-equal | "
-            f"drift from float64: one pass {d1:.3g}, 3xTF32 {d3:.3g} | ms "
-            f"one pass {ms1:.4f} (bound {b1_ms:.4f}), 3xTF32 {ms3:.4f} "
-            f"(bound {b3_ms:.4f}), F.conv2d TF32 {lib:.4f}")
-        for key, v in (("one_pass_ms", ms1), ("one_pass_3xtf32_ms", ms3),
-                       ("one_pass_bound_ms", b1_ms),
-                       ("one_pass_3xtf32_bound_ms", b3_ms),
-                       ("one_pass_library_ms", lib)):
-            k2[key] += v
-        k2["one_pass_max_abs_err"] = max(k2["one_pass_max_abs_err"], err)
-        k2["one_pass_drift_vs_float64"] = max(
-            k2["one_pass_drift_vs_float64"], d1)
-        k2["one_pass_3xtf32_drift_vs_float64"] = max(
-            k2["one_pass_3xtf32_drift_vs_float64"], d3)
+        _one_pass_row(out["fused_modconv3x3"], name, err, d1, d3)
 
-    k3 = dict(one_pass_ms=0.0, one_pass_3xtf32_ms=0.0, one_pass_bound_ms=0.0,
-              one_pass_3xtf32_bound_ms=0.0, one_pass_convs_tf32_ms=0.0,
-              one_pass_max_abs_err=0.0, one_pass_drift_vs_float64=0.0,
-              one_pass_3xtf32_drift_vs_float64=0.0)
     for hw, cin, cout in resblock_shapes(gcfg):
         sc = cin != cout
         args = ([rand(B, hw, hw, cin)] + [rand(B, cin, scale=0.5)
@@ -3258,93 +2177,31 @@ def check_one_pass(gcfg):
                    rand(cout, scale=0.1), torch.full((1,), 0.7, device=dev)]
                 + ([rand(1, 1, cin, cout, scale=cin ** -0.5),
                     rand(cout, scale=0.1)] if sc else [None, None]))
-        iters = 5 if hw >= 128 else 10
         ref64 = fr.reference_resblock_g(*(None if a is None else a.double()
                                           for a in args))
         name = f"K3 x[{B},{hw},{hw},{cin}] -> {cout}{' +1x1' if sc else ''}"
         with torch.no_grad():
-            one, want, ms1, ms3, d1, d3 = modes(
+            one, want, d1, d3 = modes(
                 lambda: fr.fused_resblock_g(*args),
                 lambda: fr.reference_resblock_g(*args, tf32=True),
-                ref64, iters, name)
+                ref64, name)
         err = _held(f"{name} one pass", one, want, True, 2e-4, 0)
         del ref64
-        x_nchw = args[0].permute(0, 3, 1, 2)
-        h1_nchw = rand(B, cout, hw, hw)
-        w1o, w2o = (args[i].permute(3, 2, 0, 1).contiguous() for i in (5, 11))
-        wso = args[14].permute(3, 2, 0, 1).contiguous() if sc else None
-
-        def convs():
-            F.conv2d(x_nchw, w1o, args[6], padding=1)
-            F.conv2d(h1_nchw, w2o, args[12], padding=1)
-            if sc:
-                F.conv2d(x_nchw, wso, args[15])
-
-        previous = _precision("high")
-        try:
-            lib = cuda_ms(convs, iters)
-        finally:
-            _precision(previous)
-        n_bytes = (sum(a.numel() for a in args if a is not None)
-                   + B * hw * hw * cout) * 4
-        flops = 2.0 * B * hw * hw * cout * (9 * cin + 9 * cout
-                                            + (cin if sc else 0))
-        b1_ms = bound(n_bytes, flops, H100_TF32_TENSOR_FLOPS)[0]
-        b3_ms = bound(n_bytes, 3 * flops, H100_TF32_TENSOR_FLOPS)[0]
-        log(f"[one-pass] {name}: one pass max_abs_err {err:.3g} against "
-            f"its plain version (tf32 operands), second call bit-equal | "
-            f"drift from float64: one pass {d1:.3g}, 3xTF32 {d3:.3g} | ms "
-            f"one pass {ms1:.4f} (bound {b1_ms:.4f}), 3xTF32 {ms3:.4f} "
-            f"(bound {b3_ms:.4f}), its convs on F.conv2d TF32 {lib:.4f}")
-        for key, v in (("one_pass_ms", ms1), ("one_pass_3xtf32_ms", ms3),
-                       ("one_pass_bound_ms", b1_ms),
-                       ("one_pass_3xtf32_bound_ms", b3_ms),
-                       ("one_pass_convs_tf32_ms", lib)):
-            k3[key] += v
-        k3["one_pass_max_abs_err"] = max(k3["one_pass_max_abs_err"], err)
-        k3["one_pass_drift_vs_float64"] = max(
-            k3["one_pass_drift_vs_float64"], d1)
-        k3["one_pass_3xtf32_drift_vs_float64"] = max(
-            k3["one_pass_3xtf32_drift_vs_float64"], d3)
-    log(f"[one-pass] K2 per served forward (batch {B}): one pass "
-        f"{k2['one_pass_ms']:.4f} ms (bound {k2['one_pass_bound_ms']:.4f}), "
-        f"3xTF32 {k2['one_pass_3xtf32_ms']:.4f} (bound "
-        f"{k2['one_pass_3xtf32_bound_ms']:.4f}), F.conv2d TF32 "
-        f"{k2['one_pass_library_ms']:.4f}; K3 per 7-block set: one pass "
-        f"{k3['one_pass_ms']:.4f} (bound {k3['one_pass_bound_ms']:.4f}), "
-        f"3xTF32 {k3['one_pass_3xtf32_ms']:.4f} (bound "
-        f"{k3['one_pass_3xtf32_bound_ms']:.4f}), its convs on F.conv2d "
-        f"TF32 {k3['one_pass_convs_tf32_ms']:.4f}")
-    return {"fused_modconv3x3": k2, "fused_resblock_g": k3}
+        _one_pass_row(out["fused_resblock_g"], name, err, d1, d3)
+    return out
 
 
-def _window_img_s(step, state, te, batch, n: int) -> float:
-    """img/s over n steps (CUDA events) after one warm step."""
-    import torch
-
-    step(state, te, *batch)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        step(state, te, *batch)
-    end.record()
-    end.synchronize()
-    return n * batch[0].shape[0] / (start.elapsed_time(end) / 1e3)
-
-
-def _clean_start() -> float:
-    """GiB allocated on the card once every dropped object is collected.
-    A dropped train state outlives its last name until the cyclic
-    collector runs (torch's Adam sits in a reference cycle, and holds the
-    parameters, their gradients and its moments), and would weigh on the
-    next peak. Resets the peak statistics."""
-    import torch
-
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    return torch.cuda.memory_allocated() / 2 ** 30
+def _one_pass_row(s: dict, name: str, err: float, d1: float,
+                  d3: float) -> None:
+    """Logs one shape of phase 10 (a) and folds it into the kernel's
+    entry."""
+    log(f"[one-pass] {name}: one pass max_abs_err {err:.3g} against its "
+        f"plain version (tf32 operands), second call bit-equal | drift from "
+        f"float64: one pass {d1:.3g}, 3xTF32 {d3:.3g}")
+    for key, v in (("one_pass_max_abs_err", err),
+                   ("one_pass_drift_vs_float64", d1),
+                   ("one_pass_3xtf32_drift_vs_float64", d3)):
+        s[key] = max(s[key], v)
 
 
 def _one_step(setup, noise):
@@ -3367,50 +2224,28 @@ def _one_step(setup, noise):
     m = step(state, te, *batch, noise=noise)
     launches = (k2.launches, k1.launches, k1b.launches)  # ends here
     state.d_opt.step = d_step
-    # on the host, so that they weigh on no later peak of the card
+    # on the host, so that they weigh on no later step of the card
     d_names = [n for n, _ in state.discriminator.named_parameters()]
     grads = {"G." + n: p.grad.detach().cpu()
              for n, p in state.generator.named_parameters()}
     grads.update(("D." + n, g.cpu()) for n, g in zip(d_names, d_grads[0]))
-    return ({k: v.item() for k, v in m.items()}, grads, launches,
-            (cfg, state, te, step, batch))
+    return {k: v.item() for k, v in m.items()}, grads, launches
 
 
 def options_steps():
-    """Phase 10 (b), (c), (e): the fp32 step at precision "highest" and
-    "high", in turns; the step with and without `remat_blocks` in fp32
-    and bf16 (batch 24, bf16 also 128); a NaN in G or D under
-    `debug_nans`. Returns ((K2, K1, K1 bwd) launches of the counted
-    steps, numbers)."""
+    """Phase 10 (b), (c), (e): one fp32 step at precision "highest" and at
+    "high"; the step with and without `remat_blocks` in fp32 and bf16
+    (batch 24, bf16 also 128); a NaN in G or D under `debug_nans`.
+    Returns the K2, K1 and K1 bwd launches of the counted steps."""
     import torch
 
-    numbers = {}
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     noise24 = torch.randn((TRAIN_BATCH, 100), generator=gen, device="cuda")
 
-    # (b) precision: img/s in turns, phase times, one step's losses and
-    # gradients at "high" against "highest" from one state
-    img_s = {"highest": [], "high": []}
-    phase_ms = {}
-    cfg, state, te, step, batch = _train_setup("float32")
+    # (b) precision: one step's losses and gradients at "high" against
+    # "highest" from one state
     previous = _precision(None)
     try:
-        for p in ("highest", "high", "high", "highest"):
-            _precision(p)
-            img_s[p].append(_window_img_s(step, state, te, batch,
-                                          OPT_WINDOW_STEPS[TRAIN_BATCH]))
-        for p in ("highest", "high"):
-            _precision(p)
-            phase_ms[p] = _phase_times(state, te, *batch, noise24,
-                                       cfg.loss)
-        res = _profile(lambda: step(state, te, *batch), 2)  # at "high"
-        if res is not None:
-            numbers["profile_high"] = {"batch": TRAIN_BATCH, **res[0]}
-            log("[profile] fp32 train step at high " + json.dumps(
-                numbers["profile_high"]))
-            for name, ms in res[1]:
-                log(f"[profile] {ms:8.3f} ms/step  {name[:110]}")
-        del state, step
         runs = {}
         for p in ("highest", "high"):
             _precision(p)
@@ -3425,10 +2260,6 @@ def options_steps():
     loss_held["d_gp_loss"] = loss_gaps["d_gp_loss"] / TF32_GP_TOL \
         * TF32_STEP_TOL
     gap = _grad_gap(g_tf, g_hi)
-    log(f"[options] fp32 step img/s in turns: highest "
-        f"{img_s['highest']}, high (one TF32 pass) {img_s['high']}; "
-        f"device ms by phase: highest {json.dumps(phase_ms['highest'])}, "
-        f"high {json.dumps(phase_ms['high'])}")
     log(f"[options] one fp32 step at high against highest: losses "
         f"{json.dumps(m_tf)} vs {json.dumps(m_hi)} (relative gaps "
         f"{json.dumps(loss_gaps)}; held: d_loss, g_loss gap / max(1, "
@@ -3439,22 +2270,18 @@ def options_steps():
         raise AssertionError(f"losses at high vs highest: {loss_gaps}")
     if gap["max_err"] > TF32_STEP_TOL * gap["max_ref"]:
         raise AssertionError(f"gradients at high vs highest: {gap}")
-    numbers["precision"] = {"img_per_s": img_s, "phase_ms": phase_ms,
-                            "loss_rel_gaps": loss_gaps, "grads": gap}
 
     # (c) remat: from one seeded state with and without, on deterministic
     # cuDNN (the same algorithms each way): the step's gradients, bit for
-    # bit, its launches; then img/s and peak memory on the default
-    # algorithms, each arm from a clean start (`_clean_start`)
+    # bit, its launches
     launches = [0, 0, 0]
     for dtype, b in REMAT_ARMS:
         noise = torch.randn((b, 100), generator=gen, device="cuda")
         arms = {}
         for remat in (False, True):
-            base = _clean_start()
             torch.backends.cudnn.deterministic = True
             try:
-                m, grads, counts, setup = _one_step(
+                m, grads, counts = _one_step(
                     lambda: _train_setup(dtype, b, remat), noise)
             finally:
                 torch.backends.cudnn.deterministic = False
@@ -3464,36 +2291,14 @@ def options_steps():
                                      f"K2, K1, K1 bwd launches {counts} != "
                                      f"{want}")
             launches = [a + c for a, c in zip(launches, counts)]
-            _, state, te, step, batch = setup
-            del setup
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            ips = _window_img_s(step, state, te, batch, OPT_WINDOW_STEPS[b])
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            arms[remat] = dict(metrics=m, grads=grads, launches=counts,
-                               img_per_s=ips, peak_gib=peak,
-                               start_gib=base, step_peak_gib=peak - base)
-            del state, step, batch
+            arms[remat] = dict(metrics=m, grads=grads, launches=counts)
         gap = _grad_gap(arms[True]["grads"], arms[False]["grads"])
         same = all(torch.equal(arms[True]["grads"][n], g)
                    for n, g in arms[False]["grads"].items())
         key = f"{dtype}_{b}"
-        numbers[f"remat_{key}"] = {
-            "bit_equal": same, "grads": gap,
-            **{("remat" if r else "plain"): {
-                k: v for k, v in a.items() if k != "grads"}
-               for r, a in arms.items()}}
         log(f"[options] {dtype} batch {b}, remat against plain: gradients "
             f"{'bit-equal' if same else _gap_text(gap)}; launches K2, K1, "
-            f"K1 bwd {arms[True]['launches']} vs {arms[False]['launches']}; "
-            f"img/s {arms[True]['img_per_s']:.2f} vs "
-            f"{arms[False]['img_per_s']:.2f}; peak "
-            f"{arms[True]['peak_gib']:.3f} vs {arms[False]['peak_gib']:.3f} "
-            f"GiB, above the arm's start of {arms[True]['start_gib']:.3f} "
-            f"and {arms[False]['start_gib']:.3f} GiB "
-            f"{arms[True]['step_peak_gib']:.3f} vs "
-            f"{arms[False]['step_peak_gib']:.3f} (saves "
-            f"{arms[False]['step_peak_gib'] - arms[True]['step_peak_gib']:.3f})")
+            f"K1 bwd {arms[True]['launches']} vs {arms[False]['launches']}")
         if not same:
             # one state, the same noise, deterministic cuDNN, and K2 adds
             # in a fixed order: the recompute gives the first pass's bits
@@ -3521,8 +2326,7 @@ def options_steps():
                                  "debug_nans: the step did not raise")
         del state, step
     log(f"[options] debug_nans: {json.dumps(raised)}")
-    numbers["debug_nans"] = raised
-    return tuple(launches), numbers
+    return tuple(launches)
 
 
 def options_entry_phase(root: str):
@@ -3532,8 +2336,8 @@ def options_entry_phase(root: str):
     and resumed to 2 (equal to A bit for bit), run C as B's first epoch
     with the uploads on the step's stream, no side stream (equal to it
     bit for bit); the profiler over A's first epoch shows the batches'
-    host-to-device copies on a stream of their own. Returns ((K2, K1, K1 bwd) launches of the runs,
-    numbers)."""
+    host-to-device copies on a stream of their own. Returns the K2, K1 and
+    K1 bwd launches of the runs."""
     import contextlib
     from unittest import mock
 
@@ -3605,7 +2409,6 @@ def options_entry_phase(root: str):
         unless given)."""
         tee = _Tee(sys.stdout)
         k2.launches = k1.launches = k1b.launches = 0  # main path starts
-        t = time.perf_counter()
         with mock.patch.object(train_entry, "Trainer", Recorded), \
                 contextlib.redirect_stdout(tee):
             hist = train_entry.train(
@@ -3614,7 +2417,6 @@ def options_entry_phase(root: str):
                 batch_size=TRAIN_BATCH, num_epochs=epochs, seed=SEED,
                 device="cuda", deterministic=True, matmul_precision="high",
                 remat_g=True, device_prefetch=True)
-        wall = time.perf_counter() - t
         counts = (k2.launches, k1.launches, k1b.launches)  # ends here
         trainer = Recorded.made[-1]
         ran = ran or epochs
@@ -3625,16 +2427,16 @@ def options_entry_phase(root: str):
         if counts != want:
             raise AssertionError(f"run {name}: K2, K1, K1 bwd launches "
                                  f"{counts} != {want}")
-        return hist, counts, wall, tee.buf.getvalue(), trainer
+        return hist, counts, tee.buf.getvalue(), trainer
 
     Recorded.profile_first = True
-    hist_a, counts_a, wall_a, _, tr_a = run("a", 2)
+    hist_a, counts_a, _, tr_a = run("a", 2)
     Recorded.profile_first = False
-    hist_b1, counts_b1, _, _, tr_b1 = run("b", 1)
+    hist_b1, counts_b1, _, tr_b1 = run("b", 1)
     saved_b = _snapshot(state_to_dict(tr_b1.state))
-    hist_b2, counts_b2, _, out_b2, tr_b2 = run("b", 2, ran=1)
+    hist_b2, counts_b2, out_b2, tr_b2 = run("b", 2, ran=1)
     Recorded.one_stream = True
-    hist_c, counts_c, wall_c, _, tr_c = run("c", 1)
+    hist_c, counts_c, _, tr_c = run("c", 1)
     Recorded.one_stream = False
     saved_c = _snapshot(state_to_dict(tr_c.state))
 
@@ -3689,15 +2491,8 @@ def options_entry_phase(root: str):
                              f"stream(s) {step_streams} (want at least 2), "
                              f"{on_step} on them (want at most "
                              f"{steps_per_epoch})")
-    numbers = {"a_wall_s": wall_a, "c_wall_s": wall_c,
-               "copies_by_stream": {str(k): v for k, v in copies.items()},
-               "step_streams": sorted(step_streams),
-               "h2d_device_ms_a": tr_a.timers["h2d"].total() * 1e3,
-               "step_device_ms_a": [t * 1e3 for t in
-                                    tr_a.timers["step"].times]}
-    totals = tuple(sum(c) for c in zip(counts_a, counts_b1, counts_b2,
-                                       counts_c))
-    return totals, numbers
+    return tuple(sum(c) for c in zip(counts_a, counts_b1, counts_b2,
+                                     counts_c))
 
 
 def main() -> int:
@@ -3713,80 +2508,41 @@ def main() -> int:
     from gan_codes_tpu_torch.utils.device import serving_device
 
     serving_device("cuda")  # TF32 off for the fp32 plain versions too
-    t0 = time.perf_counter()
     _build.build()
     log(f"[build] sm_90a, {len(_build.SOURCES)} sources, one nvcc each in "
-        f"parallel, then a link -> "
-        f"{_build.library_path().name}: {time.perf_counter() - t0:.2f}s")
-    smi = nvidia_smi_line()
-    log(f"[device] {smi}; torch {torch.__version__} cuda "
+        f"parallel, then a link -> {_build.library_path().name}")
+    log(f"[device] {nvidia_smi_line()}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
 
-    t0 = time.perf_counter()
     summary, k2_n, k1_n = check_kernels(GeneratorConfig())
     summary["fused_resblock_g"], k3_checks = check_resblock(GeneratorConfig())
-    log(f"[kernels] phase took {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR,
                                      prefix="smoke_") as root:
         os.makedirs(os.path.join(root, "weights"))
         os.makedirs(os.path.join(root, "data"))
         write_weights(root)
-        k2, k1, numbers = serve(root, k2_n, k1_n)
-        log("[serve] " + json.dumps(numbers))
-        log(f"[serve] phase took {time.perf_counter() - t0:.1f}s")
-        t0 = time.perf_counter()
-        rest_launches, rest_numbers = serve_rest(root, k2_n, k1_n)
-    log("[serve-rest] " + json.dumps(rest_numbers))
-    log(f"[serve-rest] phase took {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    (t_k2, t_k1, t_k1b), train_numbers = train()
-    log("[train] " + json.dumps(train_numbers))
-    log(f"[train] phase took {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    bare_img_s = min(train_numbers["img_per_s_float32"])
+        k2, k1 = serve(root, k2_n, k1_n)
+        rest_launches = serve_rest(root, k2_n, k1_n)
+    t_k2, t_k1, t_k1b = train()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR,
                                      prefix="entry_") as root:
         inception_path = os.path.join(root, "inception_v3.pth")
         write_inception(inception_path)
-        (e_k2, e_k1, e_k1b), entry_numbers = train_entry_phase(
-            root, bare_img_s, inception_path)
-        log("[entry] " + json.dumps(entry_numbers))
-        log(f"[entry] phase took {time.perf_counter() - t0:.1f}s")
-        t0 = time.perf_counter()
-        (v_k2, v_k1), eval_numbers = eval_phase(
-            os.path.join(root, "eval"), inception_path, bare_img_s)
-        log("[eval] " + json.dumps(eval_numbers))
-        log(f"[eval] phase took {time.perf_counter() - t0:.1f}s")
-        t0 = time.perf_counter()
-        (d_k2, d_k1, d_k1b), dp_numbers = dp_phase(
-            root, inception_path, entry_numbers, bare_img_s)
-        log("[dp] " + json.dumps(dp_numbers))
-        log(f"[dp] phase took {time.perf_counter() - t0:.1f}s")
-        t0 = time.perf_counter()
-        (i_k2, i_k1, i_k1b), interop_numbers = interop_phase(root)
-    log("[interop] " + json.dumps(interop_numbers))
-    log(f"[interop] phase took {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    up_counts, up_numbers = up_block_phase()
+        (e_k2, e_k1, e_k1b), hist_a = train_entry_phase(root, inception_path)
+        v_k2, v_k1 = eval_phase(os.path.join(root, "eval"), inception_path)
+        d_k2, d_k1, d_k1b = dp_phase(root, inception_path, hist_a)
+        i_k2, i_k1, i_k1b = interop_phase(root)
+    up_counts = up_block_phase()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR,
                                      prefix="rest_") as root:
-        p9_counts, p9_numbers = examples_tools_phase(root, k2_n, k1_n)
-    p9_numbers.update(up_numbers)
-    p9_numbers["phase_s"] = time.perf_counter() - t0
-    log("[rest] " + json.dumps(p9_numbers))
-    log(f"[rest] phase took {p9_numbers['phase_s']:.1f}s")
-    t0 = time.perf_counter()
+        p9_counts = examples_tools_phase(root, k2_n, k1_n)
     one_pass = check_one_pass(GeneratorConfig())
-    o_counts, opt_numbers = options_steps()
+    o_counts = options_steps()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR,
                                      prefix="options_") as root:
-        oe_counts, opt_numbers["entry"] = options_entry_phase(root)
-    opt_numbers["phase_s"] = time.perf_counter() - t0
-    log("[options] " + json.dumps(opt_numbers))
-    log(f"[options] phase took {opt_numbers['phase_s']:.1f}s")
+        oe_counts = options_entry_phase(root)
     # launches on the main paths; K3 is on none (as in the JAX package),
     # so its only launches are the kernel checks', which do not count
     launches = {"fused_modconv3x3": {"serve": k2, "train": t_k2,
@@ -3822,28 +2578,13 @@ def main() -> int:
     kernels = []
     for name, s in summary.items():
         by_path = dict(launches[name])
-        entry = {"name": name, "route": s["route"], "source": s["source"],
-                 "replaces": s["replaces"],
-                 "launches": sum(by_path.values()),
-                 "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                 "bound_by": s["bound_by"], "library_ms": s["library_ms"],
-                 "launches_by_path": by_path, "dtype": "float32",
-                 "batch": KERNEL_BATCH, "ms_per": s["per"],
-                 "shapes_per_call": s["path_shapes"]}
+        n = sum(by_path.values())
         if name == "fused_resblock_g":
             by_path["kernel_checks"] = k3_checks
-        entry.update(one_pass.get(name, {}))
-        for extra in ("call_ms", "no_z_ms", "no_z_call_ms", "no_z_bound_ms",
-                      "bwd_ms", "plain_bwd_ms", "ms_per_served_forward",
-                      "bound_ms_fp32_cuda_cores", "drift_vs_float64",
-                      "cudnn_drift_vs_float64", "composition_ms",
-                      "bf16_ms", "bf16_plain_ms", "bf16_library_ms",
-                      "bf16_bound_ms", "bf16_max_abs_err",
-                      "bf16_composition_ms", "bf16_call_ms"):
-            if extra in s:
-                entry[extra] = s[extra]
-        kernels.append(entry)
+        # s: route, source, replaces and the phase-2 errors
+        kernels.append({"name": name, **s, "launches": n,
+                        "launches_by_path": by_path, "dtype": "float32",
+                        "batch": KERNEL_BATCH, **one_pass.get(name, {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

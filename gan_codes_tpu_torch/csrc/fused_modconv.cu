@@ -258,7 +258,7 @@ fused_modconv3x3_kernel(const T* __restrict__ x, const T* __restrict__ g1,
   // acc is then added into sum on the CUDA cores (rounded to nearest). The
   // tensor cores' adder truncates: summed in acc over the whole K range of
   // a layer (hundreds of wgmma), the fp32 result drifted several times
-  // further from a float64 reference than cuDNN's fp32 conv (chip_smoke.py
+  // further from a float64 reference than cuDNN's fp32 conv (kernel_ab.py
   // prints both drifts). bf16 sums in acc alone.
   constexpr bool PROMOTE = PARTS == 2;
   float acc[NTILE / 2];  // wgmma's accumulator layout, 64 x NTILE

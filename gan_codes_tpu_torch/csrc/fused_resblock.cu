@@ -48,7 +48,7 @@
 //     pixels (`conv1_share`) and, among tilings it estimates within 25% of
 //     the fastest, keeps that at or below 1.5625 (the direct-conv K3 it
 //     replaced: 10 x 20 computed for 8 x 16) where the shared memory
-//     allows it. The 256px generator at batch 8 (chip_smoke.py prints each
+//     allows it. The 256px generator at batch 8 (kernel_ab.py prints each
 //     plan): 1.26-1.56 at the 64-256px blocks (Cout <= 128; tiles such as
 //     8 x 32, 8 x 43, 16 x 52 in bf16, 13 x 13, 16 x 22, 28 x 16 in fp32);
 //     at Cout 256 (1 KB of h1 a pixel in fp32, 512 B in bf16) raw h1 and

@@ -89,7 +89,7 @@ def dense(x: torch.Tensor, weight: torch.Tensor,
     rounds it unchanged: on CUDA that keeps cuBLAS on the kernels it picks
     for a bias epilogue, faster for the generator's small fp32 matmuls than
     the ones it picks for a plain product (the served batch's GEMM time in
-    chip_smoke.py's profile)."""
+    the gen cell's device trace, `h100_bench/`)."""
     w = weight.to(x.dtype)
     if bias is None:
         return F.linear(x, w)

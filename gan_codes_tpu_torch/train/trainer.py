@@ -37,13 +37,12 @@ GALIP's modules and step (`train/state.py`, `train/step.py`) and the CLIP
 model in the text encoder's place.
 
 Where the time goes is kept in `self.timers`, the device time of each step
-and of each host-to-device copy (CUDA events on a card), and in
-`self.host_seconds`, the host's seconds in `train_epoch` (which ends in the
-epoch's one device sync), waiting for the loader inside it, evaluating and
-checkpointing. Under a torch profiler two spans (`utils/profiling.py::
-span`) mark the epoch loop's parts: `train.stage` (the wait for the
-loader and the upload's enqueueing, on the host) and `train.step` (the step
-function, on the host and the device).
+(CUDA events on a card), and in `self.host_seconds`, the host's seconds in
+`train_epoch` (which ends in the epoch's one device sync), waiting for the
+loader inside it, evaluating and checkpointing. Under a torch profiler two
+spans (`utils/profiling.py::span`) mark the epoch loop's parts:
+`train.stage` (the wait for the loader and the upload's enqueueing, on the
+host) and `train.step` (the step function, on the host and the device).
 """
 from __future__ import annotations
 
@@ -129,8 +128,7 @@ class Trainer:
         # per-step scalar series of the last train_epoch (only retained when
         # cfg.train.log_every_steps > 0; consumed by fit's step-row flush)
         self._last_step_series = None
-        self.timers = {"step": StepTimer(0, self.device),
-                       "h2d": StepTimer(0, self.device)}
+        self.timers = {"step": StepTimer(0, self.device)}
         self.host_seconds = {"train": 0.0, "data_wait": 0.0, "eval": 0.0,
                              "checkpoint": 0.0}
         # tokens through GALIP's CLIP towers in the last step (0: DF-GAN)
@@ -182,8 +180,7 @@ class Trainer:
             stream = self._copy_stream
             with torch.cuda.stream(stream) if stream is not None \
                     else contextlib.nullcontext():
-                with self.timers["h2d"]:  # its events on the upload's stream
-                    staged = self._device_batch(batch)
+                staged = self._device_batch(batch)
                 ready = None if stream is None else stream.record_event()
             return (*staged, ready)
 

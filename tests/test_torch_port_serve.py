@@ -406,7 +406,8 @@ class TestPortPromises:
         """Every module of the package, and chip_smoke.py, imported in a
         fresh interpreter: neither jax nor the JAX package is loaded, nor
         matplotlib (imported only inside the one image helper that needs
-        it, so the package imports where matplotlib is not installed)."""
+        it, so the package imports where matplotlib is not installed); and
+        no module of the package imports chip_smoke."""
         code = (
             "import importlib, pkgutil, sys\n"
             "import gan_codes_tpu_torch as pkg\n"
@@ -423,6 +424,16 @@ class TestPortPromises:
                            capture_output=True, text=True, timeout=120)
         assert r.returncode == 0, r.stdout + r.stderr
         assert int(r.stdout.split()[0]) >= 15
+        # the package never reaches up into the script at the repo's root
+        pkg = os.path.join(REPO, "gan_codes_tpu_torch")
+        for base, _, files in os.walk(pkg):
+            for name in files:
+                if name.endswith(".py"):
+                    with open(os.path.join(base, name)) as f:
+                        src = f.read()
+                    assert "import chip_smoke" not in src \
+                        and "from chip_smoke" not in src, \
+                        os.path.join(base, name)
 
     def test_entry_points_refuse_a_silent_cpu(self, tmp_path):
         if torch.cuda.is_available():
