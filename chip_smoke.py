@@ -68,7 +68,8 @@ Phases (any failed check raises, so the run exits non-zero):
    and random captions, and runs `make_train_step`'s 3-phase step:
    TRAIN_STEPS steps in float32 (TF32 off) with the launch counters set to
    0 just before and read just after (14 K2, 0 K1, 14 K1 bwd per step;
-   19 MA-GP weight terms per step, `PenaltyConv2d.weight_terms`), then in
+   19 MA-GP weight terms per step, `PenaltyConv2d.weight_terms`; every
+   step after the first a CUDA graph replay, `step.replays`), then in
    bfloat16; every metric must be finite. From one fp32 state, held
    against the same through the plain versions: the phase-3 G gradients
    against one D; one whole step, D learning (its losses, its phase-1 D
@@ -1043,6 +1044,11 @@ def train():
                 f"K1 {counts[1]}, K1 bwd {counts[2]} (want {want})")
             if counts != want:
                 raise AssertionError(f"launch counters {counts} != {want}")
+            # the first step is the eager warm-up, every later one a replay
+            log(f"[train] steps replayed as CUDA graphs: {step.replays} of "
+                f"{step.steps} (want {TRAIN_STEPS - 1})")
+            if step.replays != TRAIN_STEPS - 1:
+                raise AssertionError(f"step.replays {step.replays}")
         else:
             metrics = [step(state, te, *batch) for _ in range(TRAIN_STEPS)]
         rows = [{k: v.item() for k, v in m.items()} for m in metrics]

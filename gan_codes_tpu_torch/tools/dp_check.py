@@ -141,16 +141,24 @@ def _recorder(state) -> Dict[str, list]:
 
 
 def _run_steps(case: dict, cfg, state, te, step, rows: slice,
-               device: torch.device, keep: bool) -> dict:
+               device: torch.device, keep: bool,
+               draw_noise: bool = False) -> dict:
     """Step through the case's batches (`rows` of each); per step the
     metrics, the state's digest and, with `keep`, G's and D's parameters
-    and the phase-1 D and phase-3 G gradients (on the host)."""
+    and the phase-1 D and phase-3 G gradients (on the host). With
+    `draw_noise` (and no noise in the case) each step's noise is drawn
+    from `state.rng` here, the draw the step would make, and passed in:
+    a step given its noise runs eagerly, so the recorder sees every
+    update (a CUDA graph's replay runs no Python)."""
     seen = _recorder(state)
     out: dict = {"metrics": [], "digests": [], "params": [], "grads": []}
     for i, (images, captions, cap_lens) in enumerate(case["batches"]):
         noise = None
         if case["noises"] is not None:
             noise = case["noises"][i][rows].to(device)
+        elif draw_noise:
+            noise = torch.randn((images.shape[0], cfg.generator.latent_dim),
+                                generator=state.rng, device=device)
         seen["d"].clear()
         seen["g"].clear()
         m = step(state, te, images[rows].to(device),
@@ -272,7 +280,7 @@ def reference(case: dict, device: str | torch.device = "cpu") -> dict:
     dev = torch.device(device)
     cfg, state, te = _build(case, dev)
     out = _run_steps(case, cfg, state, te, make_train_step(cfg),
-                     slice(None), dev, keep=True)
+                     slice(None), dev, keep=True, draw_noise=True)
     ev = case["eval"]
     if ev is not None:
         inc = inception_to(load_torch_inception(ev["inception"]), dev)

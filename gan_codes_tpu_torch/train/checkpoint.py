@@ -107,6 +107,19 @@ def config_mismatches(saved: Dict[str, Any], current: Dict[str, Any]
     return lines
 
 
+def _adam_state_dict(opt) -> Dict[str, Any]:
+    """`opt`'s Adam state_dict as a run with host-side step counts saves
+    it (`capturable` off, the counts on the CPU), whichever way this run
+    counts them (`ClipAdam.set_capturable`): a checkpoint does not tell
+    whether its steps ran as CUDA graphs."""
+    sd = opt.adam.state_dict()
+    sd["state"] = {i: dict(st, step=st["step"].cpu())
+                   for i, st in sd["state"].items()}
+    sd["param_groups"] = [dict(g, capturable=False)
+                          for g in sd["param_groups"]]
+    return sd
+
+
 def state_to_dict(state: TrainState) -> Dict[str, Any]:
     """Everything `TrainState` holds, as one dict of tensors and plain
     values (what `checkpoint` files contain)."""
@@ -114,8 +127,8 @@ def state_to_dict(state: TrainState) -> Dict[str, Any]:
             "generator": state.generator.state_dict(),
             "discriminator": state.discriminator.state_dict(),
             "g_ema": state.g_ema.state_dict(),
-            "g_opt": state.g_opt.adam.state_dict(),
-            "d_opt": state.d_opt.adam.state_dict(),
+            "g_opt": _adam_state_dict(state.g_opt),
+            "d_opt": _adam_state_dict(state.d_opt),
             "rng": state.rng.get_state()}
 
 
@@ -123,12 +136,16 @@ def load_state_dict(state: TrainState, blob: Dict[str, Any]) -> None:
     """Load a `state_to_dict` dict into `state`, in place. An int "rng" is
     a seed (what the importers of `models/torch_import.py` write, whose
     stream could not be carried): the step's generator restarts from it
-    on whichever device resumes the run."""
+    on whichever device resumes the run. Adam counts its steps on the
+    host after the load, whatever the blob's groups say
+    (`ClipAdam.set_capturable`; the step's CUDA graphs count them on the
+    card again when they next capture)."""
     state.generator.load_state_dict(blob["generator"])
     state.discriminator.load_state_dict(blob["discriminator"])
     state.g_ema.load_state_dict(blob["g_ema"])
-    state.g_opt.adam.load_state_dict(blob["g_opt"])
-    state.d_opt.adam.load_state_dict(blob["d_opt"])
+    for opt, key in ((state.g_opt, "g_opt"), (state.d_opt, "d_opt")):
+        opt.adam.load_state_dict(blob[key])
+        opt.set_capturable(False)
     if isinstance(blob["rng"], int):
         state.rng.manual_seed(blob["rng"])
     else:

@@ -42,7 +42,13 @@ class ClipAdam:
     over a fixed list of parameters. `step(grads)` clips the gradients in
     place, leaves them as the parameters' `.grad`, and takes one Adam step
     (torch's Adam: the same update as optax's, bias corrections included).
-    `max_norm` None: Adam alone (GALIP clips nothing)."""
+    `max_norm` None: Adam alone (GALIP clips nothing).
+
+    Adam starts with its steps counted on the host (`capturable` off:
+    each update reads every parameter's count with a CPU `.item()`);
+    `set_capturable(True)` counts them on the device, as a CUDA graph of
+    the update needs, with the bias corrections computed there in fp32,
+    as optax computes them (another rounding of the same update)."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float,
                  betas: Tuple[float, float], eps: float,
@@ -60,6 +66,18 @@ class ClipAdam:
         for p, g in zip(self.params, grads):
             p.grad = g
         self.adam.step()
+
+    def set_capturable(self, on: bool) -> None:
+        """Count Adam's steps on the parameters' device (`on`) or on the
+        host, the state it already holds included (each count moves as
+        it is: a float32 scalar either way)."""
+        self.adam.defaults["capturable"] = on
+        for group in self.adam.param_groups:
+            group["capturable"] = on
+        for p in self.params:
+            st = self.adam.state.get(p)
+            if st and "step" in st:
+                st["step"] = st["step"].to(p.device if on else "cpu")
 
 
 def make_optimizers(cfg: GANConfig, generator: Generator,

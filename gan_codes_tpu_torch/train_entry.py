@@ -71,7 +71,8 @@ then holds CLIP BPE ids, framed to 77 tokens by the dataset:
 Not ported: the JAX package's TPU compilation and dispatch knobs, which are
 exact math and have no meaning here: `--compile-cache`, `--xla-vmem-kib`,
 the lane and image padding, and `--steps-per-dispatch` (its counterpart
-on the card, a CUDA graph of the step, is a speed change for later).
+on the card is no flag: DF-GAN's step on one card replays as CUDA graphs
+from its second step on, `train/step.py::DFGANStep`).
 """
 from __future__ import annotations
 

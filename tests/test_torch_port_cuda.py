@@ -538,3 +538,176 @@ class TestPenaltyConvOnCard:
             assert kernels, "the profiler recorded no kernel"
             assert not [k for k in kernels
                         if "implicit_convolve_sgemm" in k], sorted(kernels)
+
+
+def _dfgan_state(cfg, seed=11):
+    """A seeded DF-GAN train state on the card (every block gamma away
+    from 0, the EMA = G), its frozen text encoder and 4 seeded batches."""
+    from gan_codes_tpu_torch.models.text_encoder import RNNEncoder
+    from gan_codes_tpu_torch.train.state import create_train_state
+
+    state = create_train_state(cfg, seed, device="cuda")
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for module in (state.generator, state.discriminator):
+            for name, p in module.named_parameters():
+                if name.endswith(".gamma"):
+                    p.copy_(torch.rand(1, generator=gen) * 0.5 + 0.25)
+        for e, p in zip(state.g_ema.parameters(),
+                        state.generator.parameters()):
+            e.copy_(p)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        te = RNNEncoder(cfg.text_encoder)
+    te = te.cuda().eval().requires_grad_(False)
+    b, s, t = cfg.train.batch_size, cfg.generator.image_size, \
+        cfg.text_encoder.max_len
+    batches = [((torch.rand((b, s, s, 3), generator=gen) * 2 - 1).cuda(),
+                torch.randint(1, cfg.text_encoder.vocab_size, (b, t),
+                              generator=gen).cuda(),
+                torch.randint(2, t + 1, (b,), generator=gen))
+               for _ in range(4)]
+    return state, te, batches
+
+
+def _counts():
+    """Every counter of the ops layer (`ops/kernels.COUNTERS`: K2, K1, K1
+    bwd, K3, MA-GP's weight terms)."""
+    from gan_codes_tpu_torch.ops.kernels import COUNTERS
+
+    return [getattr(holder, name) for holder, name in COUNTERS]
+
+
+def _state_tensors(state):
+    """Every tensor the step leaves in `state`, by name, on the host."""
+    out = {}
+    for key in ("generator", "discriminator", "g_ema"):
+        for n, p in getattr(state, key).named_parameters():
+            out[f"{key}.{n}"] = p.detach().cpu()
+    for key in ("g_opt", "d_opt"):
+        opt = getattr(state, key)
+        for i, p in enumerate(opt.params):
+            for f, v in opt.adam.state[p].items():
+                out[f"{key}.{i}.{f}"] = v.detach().cpu()
+    return out
+
+
+def _run(step, state, te, batches, eager: bool):
+    """The steps over `batches`: with `eager`, each with its noise drawn
+    from `state.rng` just before it (the draw the step makes itself), so
+    the step runs eagerly on the same stream of numbers. Returns each
+    step's metrics (host floats) and the counters' rise."""
+    before = _counts()
+    rows = []
+    for images, captions, lens in batches:
+        noise = torch.randn((images.shape[0], step._latent),
+                            generator=state.rng, device="cuda") \
+            if eager else None
+        m = step(state, te, images, captions, lens, noise=noise)
+        rows.append(m)
+    rows = [{k: v.item() for k, v in m.items()} for m in rows]
+    return rows, [a - b for a, b in zip(_counts(), before)]
+
+
+@pytest.fixture
+def deterministic(cuda):
+    previous = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield cuda
+    torch.backends.cudnn.deterministic = previous
+
+
+@pytest.mark.cuda
+class TestGraphedStepOnCard:
+    """DF-GAN's step as CUDA graph replays (`train/step.py::DFGANStep`)
+    against the same step run eagerly with the same optimizer settings,
+    on deterministic cuDNN, from one seed at 64 px (K2 on every DFBlock):
+    bit for bit."""
+
+    @staticmethod
+    def _cfg(gp_interval=1):
+        from gan_codes_tpu_torch.config import GANConfig
+
+        return GANConfig.for_image_size(
+            64, vocab_size=40, batch_size=4,
+            loss_overrides={"gp_interval": gp_interval})
+
+    @pytest.mark.parametrize("gp_interval", [1, 2])
+    def test_replays_equal_eager_steps(self, deterministic, gp_interval):
+        """4 steps each way: the per-step metrics, the parameters, the
+        EMA and both Adam states bit for bit; the kernels' launches and
+        MA-GP's weight terms counted alike; 3 of the graphed steps
+        replays (the first is the eager warm-up)."""
+        from gan_codes_tpu_torch.train.step import make_train_step
+
+        cfg = self._cfg(gp_interval)
+        results = []
+        for eager in (True, False):
+            state, te, batches = _dfgan_state(cfg)
+            step = make_train_step(cfg)
+            if eager:  # the optimizer settings the graphed path takes
+                state.g_opt.set_capturable(True)
+                state.d_opt.set_capturable(True)
+            rows, counts = _run(step, state, te, batches, eager)
+            torch.cuda.synchronize()
+            results.append((rows, counts, _state_tensors(state),
+                            step.replays, state.step))
+        (rows_e, counts_e, st_e, rep_e, n_e), \
+            (rows_g, counts_g, st_g, rep_g, n_g) = results
+        assert rows_g == rows_e
+        assert [r["d_gp_active"] for r in rows_g] == [
+            float(i % gp_interval == 0) for i in range(4)]
+        assert counts_g == counts_e and min(counts_e[0], counts_e[2]) > 0
+        assert counts_e[4] > 0
+        assert (rep_e, rep_g, n_e, n_g) == (0, 3, 4, 4)
+        assert st_g.keys() == st_e.keys()
+        differ = [n for n in st_e if not torch.equal(st_g[n], st_e[n])]
+        assert not differ, differ[:10]
+
+    @pytest.mark.parametrize("saved_at", [0, 2])
+    def test_restore_after_graphed_steps(self, deterministic, saved_at):
+        """Graphed steps, then a checkpoint restored (one taken after
+        `saved_at` steps: at 0 Adam has no state yet), then the steps to
+        the fourth: the graphs are captured again (after an eager step
+        where Adam has no state), and the state equals four eager steps'
+        bit for bit."""
+        from gan_codes_tpu_torch.train.checkpoint import (load_state_dict,
+                                                          state_to_dict)
+        from gan_codes_tpu_torch.train.step import make_train_step
+
+        cfg = self._cfg()
+        state, te, batches = _dfgan_state(cfg)
+        step = make_train_step(cfg)
+        state.g_opt.set_capturable(True)
+        state.d_opt.set_capturable(True)
+        rows_e, _ = _run(step, state, te, batches, eager=True)
+        want = _state_tensors(state)
+
+        state, te, batches = _dfgan_state(cfg)
+        step = make_train_step(cfg)
+        _run(step, state, te, batches[:saved_at], eager=False)
+        blob = torch.load(_roundtrip(state_to_dict(state)),
+                          map_location="cpu", weights_only=True)
+        _run(step, state, te, batches[saved_at:3], eager=False)
+        first = step._graphs
+        load_state_dict(state, blob)
+        rows_g, _ = _run(step, state, te, batches[saved_at:], eager=False)
+        torch.cuda.synchronize()
+        assert first is not None and step._graphs is not first
+        # 2 of the 3 steps before the restore; after it every step, but
+        # for the eager one that makes Adam's state when it has none
+        assert step.replays == 2 + (4 - saved_at) - (saved_at == 0)
+        assert rows_g == rows_e[saved_at:]
+        got = _state_tensors(state)
+        differ = [n for n in want if not torch.equal(got[n], want[n])]
+        assert not differ, differ[:10]
+
+
+def _roundtrip(blob):
+    """`blob` through `torch.save`, as a checkpoint file holds it."""
+    import io
+
+    buf = io.BytesIO()
+    torch.save(blob, buf)
+    buf.seek(0)
+    return buf
